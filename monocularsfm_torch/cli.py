@@ -1,0 +1,103 @@
+"""The `sfm-torch` command-line interface: the port's stages so far.
+
+    sfm-torch extract       <config.yaml> [--device cuda]   images -> features
+    sfm-torch match         <config.yaml> [--device cuda]   features -> matches
+    sfm-torch check-matches <config.yaml>                   per-pair statistics
+
+The SQLite database is the only interface between stages, as in the JAX
+package's `sfm` CLI, so a database written by one package's stage can be
+read by the other's next stage.  `reconstruct` and `pipeline` come with the
+reconstruct stage.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+import time
+
+import numpy as np
+
+
+def cmd_extract(cfg, device="cuda", log=print):
+    from monocularsfm_torch.features.extraction import FeatureExtractor
+
+    t0 = time.perf_counter()
+    n = FeatureExtractor(cfg.extraction, device=device).run_extraction(
+        cfg.images_path, cfg.database_path, log=log
+    )
+    log(f"[extract] processed {n} images in {time.perf_counter()-t0:.1f}s")
+    return n
+
+
+def cmd_match(cfg, device="cuda", log=print):
+    from monocularsfm_torch.features.matching import (
+        BruteFeatureMatcher,
+        SequentialFeatureMatcher,
+    )
+
+    if cfg.matching.match_type not in ("brute", "sequential"):
+        raise ValueError(
+            f"match_type {cfg.matching.match_type!r} is not ported")
+    t0 = time.perf_counter()
+    cls = (SequentialFeatureMatcher if cfg.matching.match_type == "sequential"
+           else BruteFeatureMatcher)
+    n = cls(cfg.matching, device=device).run_matching(
+        cfg.database_path, log=log)
+    log(f"[match] wrote {n} pairs in {time.perf_counter()-t0:.1f}s")
+    return n
+
+
+def cmd_check_matches(cfg, log=print):
+    from monocularsfm_torch.database import Database
+
+    db = Database(cfg.database_path)
+    try:
+        names = db.read_all_images()
+        matches = db.read_all_matches()
+        log(f"images: {len(names)}  match pairs: {len(matches)}")
+        counts = sorted(
+            ((len(m), a, b) for (a, b), m in matches.items()), reverse=True
+        )
+        for cnt, a, b in counts[:50]:
+            log(f"  {names.get(a, a)} -- {names.get(b, b)}: {cnt}")
+        nonzero = [c for c, _, _ in counts if c > 0]
+        if nonzero:
+            log(
+                f"mean matches/pair: {np.mean(nonzero):.1f}  "
+                f"median: {np.median(nonzero):.0f}"
+            )
+    finally:
+        db.close()
+    return {(a, b): cnt for cnt, a, b in counts}
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(
+        prog="sfm-torch",
+        description="Incremental Structure-from-Motion on PyTorch/CUDA "
+                    "(extract and match stages)",
+    )
+    sub = parser.add_subparsers(dest="command", required=True)
+    for name in ("extract", "match", "check-matches"):
+        p = sub.add_parser(name)
+        p.add_argument("config", help="YAML config (reference-style or nested)")
+        if name != "check-matches":
+            p.add_argument("--device", default="cuda",
+                           help="torch device of the stage (default: cuda)")
+    args = parser.parse_args(argv)
+
+    from monocularsfm_torch.config import load_yaml
+
+    cfg = load_yaml(args.config)
+    if args.command == "extract":
+        cmd_extract(cfg, device=args.device)
+    elif args.command == "match":
+        cmd_match(cfg, device=args.device)
+    elif args.command == "check-matches":
+        cmd_check_matches(cfg)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
