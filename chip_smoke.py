@@ -6,10 +6,16 @@ Builds the CUDA kernels from monocularsfm_torch/csrc, checks each against its
 plain PyTorch version on the card, checks the port's SIFT on the card
 against the same SIFT on the CPU, then drives the port's extract and match
 stages (`sfm-torch extract`, `match`, `check-matches`) on 8 rendered
-1280x960 images at the default configuration.  It stops at the first
+1280x960 images at the default configuration.  Then bundle adjustment on
+the card: the dense Schur solver on a 128-camera / 40k-point ring (against
+the same solve on the CPU) and the PCG solver on a 1024-camera /
+200k-point ring with split tracks.  Last, `sfm-torch pipeline` (extract,
+match, reconstruct, export) on 32 rendered 1280x960 views of a
+multi-plane scene, checked against the true poses.  It stops at the first
 failure with a non-zero exit.  The last three lines of standard output are
 the card's name and power limit (nvidia-smi), one JSON object describing
-the kernels, and {"ok": true, "device": {...}}.  Logs go to stderr.
+the kernels and the measured rates, and {"ok": true, "device": {...}}.
+Logs go to stderr.
 """
 
 from __future__ import annotations
@@ -36,6 +42,20 @@ KP_TOL, DESC_TOL, KP_AGREE = 0.01, 2e-3, 0.99
 SLICE_IMAGES, SLICE_W, SLICE_H = 8, 1280, 960
 MIN_VERIFIED = 15
 MIN_KEYPOINTS = 1000            # per 1280x960 view (about 8000 expected)
+# Bundle adjustment: the repo bench's camera-ring problems.
+BA_CAMS, BA_POINTS, BA_TRACK, BA_ITERS = 128, 40_000, 8, 50
+PCG_CAMS, PCG_POINTS, PCG_TRACK, PCG_LM_ITERS, PCG_INNER = 1024, 200_000, 6, 10, 50
+RMSE_MAX = 0.5                  # px; the 0.5 px noise gives about 0.45
+CUDA_CPU_RTOL = 1e-4            # cost after 1..3 LM iterations, card vs CPU
+# Rates are taken over a fixed amount of work: with the stopping tolerances
+# at 0, LM runs all its iterations and CG all its steps.
+FIXED_WORK = dict(function_tolerance=0.0, parameter_tolerance=0.0,
+                  gradient_tolerance=0.0, pcg_rtol=0.0)
+PCG_DENSE_TOL = 2e-3            # px of rmse_final, PCG vs dense, 128 cameras
+# Pipeline: tools/scale_run.py's recipe at 32 views (mp128 camera spacing).
+MP_VIEWS, MP_W, MP_H, MP_SEED = 32, 1280, 960, 7
+MP_ARC_PER_VIEW = 200.0 / 128
+MP_REPROJ_MAX, MP_CENTER_PCT_MAX, MP_MIN_POINTS = 0.5, 0.1, 5000
 
 
 def log(*a):
@@ -292,6 +312,222 @@ def phase_slice(dev):
     return launches, n_img / t_ext, n_pairs / t_match
 
 
+def ring_problem(cams, points, track, seed, row_width=None):
+    """The repo bench's camera-ring BA problem (bench.py _ring_problem),
+    built with the port; with `row_width` every track is split into rows of
+    that width (sorted point_rows, the PCG solver's cached path)."""
+    from monocularsfm_torch.geometry import angle_axis_to_matrix
+    from monocularsfm_torch.optim import make_bundle_problem
+    from monocularsfm_torch.utils.synthetic import camera_ring_scene
+
+    scene = camera_ring_scene(num_cameras=cams, num_points=points,
+                              noise_px=0.5, seed=seed)
+    rng = np.random.default_rng(0)
+    vis = scene.visible.T
+    keys = rng.random(vis.shape) + np.where(vis, 0.0, 10.0)
+    order = np.argpartition(keys, min(track, vis.shape[1] - 1), axis=1)
+    obs_cam = order[:, :track].astype(np.int32)
+    obs_valid = np.take_along_axis(vis, order[:, :track], axis=1)
+    obs_uv = scene.observations[obs_cam, np.arange(points)[:, None]]
+    aa = torch.from_numpy(rng.normal(scale=0.01, size=(cams, 3))).float()
+    R = np.einsum("cij,cjk->cik", angle_axis_to_matrix(aa).double().numpy(),
+                  scene.R)
+    t = scene.t + rng.normal(scale=0.02, size=(cams, 3))
+    X = scene.points + rng.normal(scale=0.02, size=scene.points.shape)
+    K4 = [scene.K[0, 0], scene.K[1, 1], scene.K[0, 2], scene.K[1, 2]]
+    const = np.arange(cams) == 0
+    nobs = int(obs_valid.sum())
+    if row_width is None:
+        return make_bundle_problem(K4, R, t, X, obs_cam, obs_uv, obs_valid,
+                                   const), nobs
+    nrow = -(-track // row_width)
+    return make_bundle_problem(
+        K4, R, t, X, obs_cam.reshape(-1, row_width),
+        obs_uv.reshape(-1, row_width, 2), obs_valid.reshape(-1, row_width),
+        const, point_valid=obs_valid.any(1),
+        point_rows=np.repeat(np.arange(points), nrow)), nobs
+
+
+def timed_ba(prob, dev, **kw):
+    """(result, wall seconds) of one bundle_adjust on `dev`."""
+    from monocularsfm_torch.optim import bundle_adjust
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = bundle_adjust(prob, device=dev, **kw)
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def phase_ba_dense(dev):
+    from monocularsfm_torch.optim import bundle_adjust
+
+    t0 = time.perf_counter()
+    prob, nobs = ring_problem(BA_CAMS, BA_POINTS, BA_TRACK, seed=2)
+    gpu = prob.to(dev)
+    log(f"[ba_dense] {BA_CAMS} cams, {BA_POINTS} points, {nobs} obs "
+        f"(built in {time.perf_counter() - t0:.1f}s)")
+    timed_ba(gpu, dev, max_iterations=2)            # first-call costs
+    out, dt = timed_ba(gpu, dev, max_iterations=BA_ITERS, **FIXED_WORK)
+    it = out["iterations"]
+    c0, c1 = float(out["cost_initial"]), float(out["cost_final"])
+    rmse = float(out["rmse_final"])
+    log(f"[ba_dense] {it} LM iters in {dt:.3f}s -> {it / dt:.3f} iters/s | "
+        f"cost {c0:.1f} -> {c1:.1f}, rmse {float(out['rmse_initial']):.4f} -> "
+        f"{rmse:.5f} px, mean reproj {float(out['mean_reproj_error']):.5f} px")
+    if not (c1 < c0 and rmse <= RMSE_MAX):
+        fail(f"dense BA: cost {c0} -> {c1}, rmse_final {rmse} (need <= {RMSE_MAX})")
+    rel = 0.0
+    for k in (1, 2, 3):
+        a = float(bundle_adjust(prob, device="cpu", max_iterations=k)["cost_final"])
+        b = float(bundle_adjust(gpu, device=dev, max_iterations=k)["cost_final"])
+        rel = max(rel, abs(a - b) / a)
+        log(f"[ba_dense] after {k} LM iters: cost cpu {a:.4f} cuda {b:.4f}")
+    if rel > CUDA_CPU_RTOL:
+        fail(f"dense BA cuda vs cpu: relative cost difference {rel} > {CUDA_CPU_RTOL}")
+    return {"ba_dense_lm_iters_per_s": it / dt, "ba_dense_lm_iters": it,
+            "ba_dense_rmse_final": rmse, "ba_dense_cuda_cpu_cost_rel": rel}
+
+
+def phase_ba_pcg(dev, dense_rmse):
+    t0 = time.perf_counter()
+    prob, nobs = ring_problem(PCG_CAMS, PCG_POINTS, PCG_TRACK, seed=3, row_width=3)
+    gpu = prob.to(dev)
+    del prob
+    log(f"[ba_pcg] {PCG_CAMS} cams, {PCG_POINTS} points, {nobs} obs in rows "
+        f"of 3 (built in {time.perf_counter() - t0:.1f}s)")
+    kw = dict(solve_mode="pcg", pcg_iters=PCG_INNER)
+    timed_ba(gpu, dev, max_iterations=1, **kw)      # first-call costs
+    out, dt = timed_ba(gpu, dev, max_iterations=PCG_LM_ITERS, **kw, **FIXED_WORK)
+    it, cg = out["iterations"], out["cg_steps"]
+    rmse = float(out["rmse_final"])
+    log(f"[ba_pcg] {it} LM iters, {cg} CG steps in {dt:.3f}s -> "
+        f"{it / dt:.3f} iters/s | rmse {float(out['rmse_initial']):.4f} -> "
+        f"{rmse:.5f} px")
+    if rmse > RMSE_MAX:
+        fail(f"PCG BA: rmse_final {rmse} > {RMSE_MAX}")
+    del gpu
+    split, _ = ring_problem(BA_CAMS, BA_POINTS, BA_TRACK, seed=2, row_width=4)
+    same, dt2 = timed_ba(split.to(dev), dev, max_iterations=BA_ITERS, **kw)
+    diff = abs(float(same["rmse_final"]) - dense_rmse)
+    log(f"[ba_pcg] {BA_CAMS}-camera problem by PCG: {same['iterations']} LM "
+        f"iters, {same['cg_steps']} CG steps in {dt2:.3f}s, rmse "
+        f"{float(same['rmse_final']):.5f} px vs dense {dense_rmse:.5f} (diff {diff:.2e})")
+    if diff > PCG_DENSE_TOL:
+        fail(f"PCG vs dense rmse_final differ by {diff} px > {PCG_DENSE_TOL}")
+    return {"ba_pcg_lm_iters_per_s": it / dt, "ba_pcg_lm_iters": it,
+            "ba_pcg_cg_steps": cg, "ba_pcg_rmse_final": rmse,
+            "ba_pcg_vs_dense_rmse_diff": diff}
+
+
+def phase_reconstruct(dev, views):
+    from monocularsfm_torch import cli, native
+    from monocularsfm_torch.config import SfMConfig
+    from monocularsfm_torch.io.colmap import read_colmap
+    from monocularsfm_torch.io.openmvs import read_openmvs_summary
+    from monocularsfm_torch.io.ply import read_ply
+    from monocularsfm_torch.ops import blur, match_kernel
+    from monocularsfm_torch.utils.png import write_png
+    from monocularsfm_torch.utils.synthetic import (
+        render_multiplane_images,
+        similarity_align,
+    )
+
+    t0 = time.perf_counter()
+    imgs, K, R_gt, t_gt = render_multiplane_images(
+        scene_seed=MP_SEED, num_cameras=views, width=MP_W, height=MP_H,
+        arc_deg=MP_ARC_PER_VIEW * views)
+    log(f"[pipeline] rendered {views} views {MP_W}x{MP_H} in "
+        f"{time.perf_counter() - t0:.1f}s")
+    quiet = lambda *a: None  # noqa: E731
+    with tempfile.TemporaryDirectory() as tmp:
+        images = os.path.join(tmp, "images")
+        os.makedirs(images)
+        for i, im in enumerate(imgs):
+            write_png(f"{images}/frame{i:04d}.png", im)
+        cfg = SfMConfig(images_path=images, database_path=f"{tmp}/mp.db",
+                        output_path=f"{tmp}/out")
+        cfg.camera.fx, cfg.camera.fy = float(K[0, 0]), float(K[1, 1])
+        cfg.camera.cx, cfg.camera.cy = float(K[0, 2]), float(K[1, 2])
+        cfg.extraction.num_features = 8024
+        cfg.matching.match_type = "sequential"
+        cfg.matching.overlap = 12
+        stages = {}
+
+        def stage(name, fn, *a, **kw):
+            torch.cuda.synchronize()
+            a0 = time.perf_counter()
+            res = fn(*a, **kw)
+            torch.cuda.synchronize()
+            stages[name] = time.perf_counter() - a0
+            log(f"[pipeline] {name}: {stages[name]:.2f}s")
+            return res
+
+        blur.reset_launches()
+        match_kernel.reset_launches()
+        stage("extract", cli.cmd_extract, cfg, device=dev, log=quiet)
+        n_pairs = stage("match", cli.cmd_match, cfg, device=dev, log=quiet)
+        builder = stage("reconstruct", cli.cmd_reconstruct, cfg, device=dev,
+                        log=log)
+        launches = dict(blur.LAUNCHES, **match_kernel.LAUNCHES)
+        if builder.map._native is None:
+            fail("the native track-maintenance library is not loaded")
+        log(f"[pipeline] native library loaded: {native.library_path().name}")
+        st = builder.map.statistics()
+        out = os.path.join(tmp, "out")
+        model = read_colmap(os.path.join(out, "colmap"))
+        mvs = read_openmvs_summary(os.path.join(out, "scene.mvs"))
+        ply_xyz, _ = read_ply(os.path.join(out, "cloud_binary.ply"))
+        ids = {builder.map.images[i].name: i for i in builder.map.registered_ids}
+        src, dst = [], []
+        for v in range(views):
+            i = ids.get(f"frame{v:04d}.png")
+            if i is not None:
+                im = builder.map.images[i]
+                src.append(-im.R.T @ im.t)
+                dst.append(-R_gt[v].T @ t_gt[v])
+    _, rms = similarity_align(np.asarray(src), np.asarray(dst))
+    center_pct = 100.0 * rms / float(np.linalg.norm(np.ptp(np.asarray(dst), axis=0)))
+    timers = {k: builder.timers[k].elapsed for k in (
+        "initialize", "register", "triangulate", "local_ba", "global_ba",
+        "filter", "total")}
+    log(f"[pipeline] {st.num_registered_images}/{views} registered, "
+        f"{st.num_points3D} points, {st.num_observations} obs, mean reproj "
+        f"{st.mean_reprojection_error:.5f} px, camera-centre RMS "
+        f"{center_pct:.5f}% of the scene diagonal, {n_pairs} pairs matched")
+    log(f"[pipeline] MapBuilder timers (s): "
+        + ", ".join(f"{k} {v:.2f}" for k, v in timers.items()))
+    log(f"[pipeline] launches {launches}")
+    if st.num_registered_images < views - 1:
+        fail(f"registered {st.num_registered_images} of {views} views")
+    if not st.mean_reprojection_error < MP_REPROJ_MAX:
+        fail(f"mean reprojection error {st.mean_reprojection_error} px")
+    if not center_pct < MP_CENTER_PCT_MAX:
+        fail(f"camera-centre RMS {center_pct}% of the scene diagonal")
+    if not st.num_points3D > MP_MIN_POINTS:
+        fail(f"{st.num_points3D} points (need > {MP_MIN_POINTS})")
+    if (sorted(model["images"]) != sorted(builder.map.registered_ids)
+            or len(model["points"]) != st.num_points3D
+            or len(ply_xyz) != st.num_points3D
+            or mvs["images"] != views
+            or mvs["posed_images"] != st.num_registered_images):
+        fail(f"exports disagree with the map: COLMAP {len(model['images'])} "
+             f"images / {len(model['points'])} points, PLY {len(ply_xyz)}, "
+             f"mvs {mvs}")
+    if not (launches["blur_v"] > 0 and launches["blur_h"] > 0
+            and launches["match_tile"] > 0):
+        fail(f"pipeline kernel launches {launches}")
+    return launches, {
+        "pipeline_views": views,
+        "pipeline_registered": st.num_registered_images,
+        "pipeline_points": st.num_points3D,
+        "pipeline_mean_reproj_px": st.mean_reprojection_error,
+        "pipeline_center_rms_pct_of_scene": center_pct,
+        "pipeline_stage_s": stages,
+        "pipeline_mapbuilder_s": timers,
+    }
+
+
 def main():
     dev = "cuda"
     smi = phase_device()
@@ -301,29 +537,46 @@ def main():
     blur_rows = check_blur(dev)
     sim_err, agree, t_k, t_p = check_matcher(dev)
     phase_sift(dev)
-    launches, ips, pps = phase_slice(dev)
+    launches_slice, ips, pps = phase_slice(dev)
+    walls = {}
+
+    def walled(name, fn, *a):
+        t0 = time.perf_counter()
+        res = fn(*a)
+        walls[name] = time.perf_counter() - t0
+        log(f"[{name}] phase wall {walls[name]:.1f}s")
+        return res
+
+    rates = walled("ba_dense", phase_ba_dense, dev)
+    rates.update(walled("ba_pcg", phase_ba_pcg, dev, rates["ba_dense_rmse_final"]))
+    launches, quality = walled("pipeline", phase_reconstruct, dev, MP_VIEWS)
+    rates.update(quality, phase_wall_s=walls)
 
     _, err_v, err_h, t = blur_rows[1]  # the octave stack dominates
     kernels = [
         {"name": "blur_v", "route": "cuda",
          "source": "monocularsfm_torch/csrc/blur.cu",
          "replaces": "monocularsfm_tpu/ops/pallas_blur.py:42",
-         "launches": launches["blur_v"], "max_abs_err": err_v,
+         "launches": launches["blur_v"],
+         "launches_extract_match": launches_slice["blur_v"], "max_abs_err": err_v,
          "ms": t["v"], "plain_ms": t["v_plain"]},
         {"name": "blur_h", "route": "cuda",
          "source": "monocularsfm_torch/csrc/blur.cu",
          "replaces": "monocularsfm_tpu/ops/pallas_blur.py:59",
-         "launches": launches["blur_h"], "max_abs_err": err_h,
+         "launches": launches["blur_h"],
+         "launches_extract_match": launches_slice["blur_h"], "max_abs_err": err_h,
          "ms": t["h"], "plain_ms": t["h_plain"]},
         {"name": "match_tile", "route": "cuda",
          "source": "monocularsfm_torch/csrc/match_tile.cu",
          "replaces": "monocularsfm_tpu/ops/pallas_matching.py:39",
-         "launches": launches["match_tile"], "max_abs_err": sim_err,
+         "launches": launches["match_tile"],
+         "launches_extract_match": launches_slice["match_tile"],
+         "max_abs_err": sim_err,
          "index_agreement": agree, "ms": t_k, "plain_ms": t_p},
     ]
     print(smi)
     print(json.dumps({"kernels": kernels, "extract_images_per_s": ips,
-                      "match_pairs_per_s": pps}))
+                      "match_pairs_per_s": pps, **rates}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

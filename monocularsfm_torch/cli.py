@@ -1,18 +1,20 @@
-"""The `sfm-torch` command-line interface: the port's stages so far.
+"""The `sfm-torch` command-line interface.
 
     sfm-torch extract       <config.yaml> [--device cuda]   images -> features
     sfm-torch match         <config.yaml> [--device cuda]   features -> matches
     sfm-torch check-matches <config.yaml>                   per-pair statistics
+    sfm-torch reconstruct   <config.yaml> [--device cuda]   matches -> model + exports
+    sfm-torch pipeline      <config.yaml> [--device cuda]   all of the above in order
 
 The SQLite database is the only interface between stages, as in the JAX
 package's `sfm` CLI, so a database written by one package's stage can be
-read by the other's next stage.  `reconstruct` and `pipeline` come with the
-reconstruct stage.
+read by the other's next stage.  A CUDA device without a visible GPU raises.
 """
 
 from __future__ import annotations
 
 import argparse
+import pathlib
 import sys
 import time
 
@@ -48,6 +50,58 @@ def cmd_match(cfg, device="cuda", log=print):
     return n
 
 
+def cmd_reconstruct(cfg, device="cuda", log=print):
+    """Reconstruct from the database and export; returns the MapBuilder."""
+    from monocularsfm_torch.database import Database
+    from monocularsfm_torch.reconstruction import MapBuilder
+
+    builder = MapBuilder(cfg, device=device)
+    db = Database(cfg.database_path)
+    try:
+        names = db.read_all_images()
+        keypoints = {}
+        colors = {}
+        for i in names:
+            k = db.read_keypoints(i)
+            if k is None:
+                continue
+            keypoints[i] = k
+            c = db.read_keypoints_color(i)
+            colors[i] = c if c is not None else np.zeros((len(k), 3), np.uint8)
+        matches = {p: m for p, m in db.read_all_matches().items() if len(m)}
+    finally:
+        db.close()
+
+    builder._log = log
+    builder.setup(matches, keypoints, colors=colors, names=names)
+    summary = builder.do_build()
+    log(str(summary))
+
+    out = pathlib.Path(cfg.output_path or ".")
+    out.mkdir(parents=True, exist_ok=True)
+    cmd_export(cfg, builder.map, out, log=log)
+    return builder
+
+
+def cmd_export(cfg, map_obj, out_dir, log=print):
+    from monocularsfm_torch.io import (
+        write_colmap,
+        write_openmvs,
+        write_ply,
+        write_ply_binary,
+    )
+
+    out = pathlib.Path(out_dir)
+    write_colmap(map_obj, out / "colmap")
+    write_ply(map_obj, out / "cloud.ply")
+    write_ply_binary(map_obj, out / "cloud_binary.ply")
+    write_openmvs(
+        map_obj, out / "scene.mvs", image_dir=cfg.images_path,
+        images_path=cfg.images_path, dist=cfg.camera.dist_coeffs(), log=log,
+    )
+    log(f"[export] COLMAP/PLY/OpenMVS written to {out}")
+
+
 def cmd_check_matches(cfg, log=print):
     from monocularsfm_torch.database import Database
 
@@ -75,11 +129,10 @@ def cmd_check_matches(cfg, log=print):
 def main(argv=None):
     parser = argparse.ArgumentParser(
         prog="sfm-torch",
-        description="Incremental Structure-from-Motion on PyTorch/CUDA "
-                    "(extract and match stages)",
+        description="Incremental Structure-from-Motion on PyTorch/CUDA",
     )
     sub = parser.add_subparsers(dest="command", required=True)
-    for name in ("extract", "match", "check-matches"):
+    for name in ("extract", "match", "check-matches", "reconstruct", "pipeline"):
         p = sub.add_parser(name)
         p.add_argument("config", help="YAML config (reference-style or nested)")
         if name != "check-matches":
@@ -90,12 +143,22 @@ def main(argv=None):
     from monocularsfm_torch.config import load_yaml
 
     cfg = load_yaml(args.config)
+    if args.command != "check-matches":
+        from monocularsfm_torch.reconstruction.map_builder import resolve_device
+
+        resolve_device(args.device)
     if args.command == "extract":
         cmd_extract(cfg, device=args.device)
     elif args.command == "match":
         cmd_match(cfg, device=args.device)
     elif args.command == "check-matches":
         cmd_check_matches(cfg)
+    elif args.command == "reconstruct":
+        cmd_reconstruct(cfg, device=args.device)
+    elif args.command == "pipeline":
+        cmd_extract(cfg, device=args.device)
+        cmd_match(cfg, device=args.device)
+        cmd_reconstruct(cfg, device=args.device)
     return 0
 
 

@@ -21,6 +21,7 @@ from monocularsfm_torch.estimators.ransac import (
     sample_minimal_sets,
     score_hypotheses,
 )
+from monocularsfm_torch.utils.linalg import eigh_vectors, svd
 from monocularsfm_torch.utils.precision import mm
 
 
@@ -51,31 +52,15 @@ def _eight_point_rows(x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
         [u2 * u1, u2 * v1, u2, v2 * u1, v2 * v1, v2, u1, v1, one], dim=-1)
 
 
-# cuSOLVER's batched symmetric eigensolver rejects batches of 32768 or more
-# 9x9 matrices (CUSOLVER_STATUS_INVALID_VALUE from its workspace query,
-# torch 2.11 with CUDA 12.8 on an H100); 16384 works.
-_EIGH_BATCH = 16384
-
-
-def _eigh_vectors(A: torch.Tensor) -> torch.Tensor:
-    """Eigenvectors (ascending eigenvalues) of a batch of symmetric
-    matrices, in slices the batched solver accepts."""
-    n = A.shape[-1]
-    flat = A.reshape(-1, n, n)
-    V = torch.cat([torch.linalg.eigh(flat[s:s + _EIGH_BATCH])[1]
-                   for s in range(0, flat.shape[0], _EIGH_BATCH)])
-    return V.reshape(A.shape)
-
-
 def _fit_f(rows: torch.Tensor, weights: torch.Tensor | None = None):
     """F from constraint rows (..., R, 9): smallest eigenvector of
     sum_r w_r a_r a_r^T, reshaped, projected to rank 2."""
     if weights is not None:
         rows = rows * weights[..., None]
     AtA = rows.transpose(-1, -2) @ rows
-    V = _eigh_vectors(AtA)
+    V = eigh_vectors(AtA)
     F = V[..., :, 0].reshape(V.shape[:-2] + (3, 3))
-    U, S, Vh = torch.linalg.svd(F)
+    U, S, Vh = svd(F)
     S = torch.cat([S[..., :2], torch.zeros_like(S[..., 2:])], dim=-1)
     return mm(U, S[..., :, None] * Vh)
 

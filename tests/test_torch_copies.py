@@ -11,7 +11,9 @@ import pytest
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 COPIED = ["types.py", "config.py", "database.py", "utils/timer.py",
-          "utils/caps.py"]
+          "utils/caps.py", "reconstruction/scene_graph.py",
+          "reconstruction/register_graph.py", "reconstruction/map_state.py",
+          "io/ply.py"]
 
 
 @pytest.mark.parametrize("rel", COPIED)
@@ -43,6 +45,11 @@ def test_port_never_imports_jax():
         "import monocularsfm_torch.features, monocularsfm_torch.estimators\n"
         "import monocularsfm_torch.ops.sift, monocularsfm_torch.ops.matching\n"
         "import monocularsfm_torch.utils.synthetic, monocularsfm_torch.utils.png\n"
+        "import monocularsfm_torch.geometry, monocularsfm_torch.optim\n"
+        "import monocularsfm_torch.reconstruction, monocularsfm_torch.io\n"
+        "import monocularsfm_torch.native, monocularsfm_torch.ops.undistort\n"
+        "from monocularsfm_torch.cli import cmd_reconstruct, cmd_export\n"
+        "monocularsfm_torch.native.get_lib()\n"
         "bad = [m for m in sys.modules\n"
         "       if m.split('.')[0] in ('jax', 'jaxlib', 'monocularsfm_tpu')]\n"
         "assert not bad, bad\n"

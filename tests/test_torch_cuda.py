@@ -86,3 +86,51 @@ def test_match_kernel_rejects_bad_inputs(dev):
         match_kernel.match_tile_partials(bank[:, :200], mask[:, :200], pairs)
     with pytest.raises(ValueError):
         match_kernel.match_tile_partials(bank, mask, pairs + 5)
+
+
+def _ring(split):
+    """A small camera-ring BA problem (the bench recipe), host arrays."""
+    from monocularsfm_torch.geometry import angle_axis_to_matrix
+    from monocularsfm_torch.optim import make_bundle_problem
+    from monocularsfm_torch.utils.synthetic import camera_ring_scene
+
+    cams, points, track = 8, 1500, 4
+    scene = camera_ring_scene(num_cameras=cams, num_points=points,
+                              noise_px=0.5, seed=2)
+    rng = np.random.default_rng(0)
+    vis = scene.visible.T
+    keys = rng.random(vis.shape) + np.where(vis, 0.0, 10.0)
+    order = np.argpartition(keys, track, axis=1)[:, :track]
+    obs_valid = np.take_along_axis(vis, order, axis=1)
+    obs_uv = scene.observations[order, np.arange(points)[:, None]]
+    aa = torch.from_numpy(rng.normal(scale=0.01, size=(cams, 3))).float()
+    R = np.einsum("cij,cjk->cik", angle_axis_to_matrix(aa).double().numpy(), scene.R)
+    t = scene.t + rng.normal(scale=0.02, size=(cams, 3))
+    X = scene.points + rng.normal(scale=0.02, size=scene.points.shape)
+    K4 = [scene.K[0, 0], scene.K[1, 1], scene.K[0, 2], scene.K[1, 2]]
+    const = np.arange(cams) == 0
+    if not split:
+        return make_bundle_problem(K4, R, t, X, order, obs_uv, obs_valid, const)
+    return make_bundle_problem(
+        K4, R, t, X, order.reshape(-1, 2), obs_uv.reshape(-1, 2, 2),
+        obs_valid.reshape(-1, 2), const, point_valid=obs_valid.any(1),
+        point_rows=np.repeat(np.arange(points), 2))
+
+
+@pytest.mark.parametrize("mode", ["dense", "pcg"])
+def test_bundle_adjust_on_the_card_matches_the_cpu(dev, mode):
+    from monocularsfm_torch.optim import bundle_adjust
+
+    prob = _ring(split=mode == "pcg")
+    kw = dict(max_iterations=3, solve_mode=mode, pcg_iters=20)
+    cpu = bundle_adjust(prob, device="cpu", **kw)
+    gpu = bundle_adjust(prob.to(dev), device=dev, **kw)
+    assert gpu["R"].device.type == "cuda"
+    assert gpu["iterations"] == cpu["iterations"]
+    for k in ("cost_initial", "cost_final"):
+        a, b = float(cpu[k]), float(gpu[k])
+        assert abs(a - b) <= 1e-4 * a, (k, a, b)
+    for k in ("R", "t", "X"):
+        assert (gpu[k].cpu() - cpu[k]).abs().max().item() <= 1e-3, k
+    with pytest.raises(ValueError, match="lies on"):
+        bundle_adjust(prob, device=dev, **kw)

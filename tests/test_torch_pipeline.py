@@ -1,8 +1,9 @@
-"""The port's extract + match stages against the JAX package's, end to end.
+"""The port's stages against the JAX package's, end to end.
 
 Both packages run on the CPU from the same rendered PNGs into their own
 SQLite databases; the database is the interface between stages, so the JAX
-matcher is also run on the port's database.
+matcher is also run on the port's database.  The port's reconstruct stage
+runs on the port's database and the JAX package reads its COLMAP export.
 """
 
 import shutil
@@ -41,8 +42,8 @@ def runs(tmp_path_factory):
     root = tmp_path_factory.mktemp("pipeline")
     images = root / "images"
     images.mkdir()
-    imgs = render_textured_images(num_cameras=4, width=320, height=240,
-                                  arc_deg=30.0, scene_seed=5)[0]
+    imgs, K, R, t = render_textured_images(num_cameras=4, width=320, height=240,
+                                           arc_deg=30.0, scene_seed=5)
     for i, im in enumerate(imgs):
         write_png(images / f"im{i:02d}.png", im)
     quiet = lambda *a: None  # noqa: E731
@@ -68,11 +69,11 @@ def runs(tmp_path_factory):
     db.close()
     jax_cli.cmd_match(_config(jax_config, images, cross_db), log=quiet)
     return (_verified(jax_db), _verified(torch_db), _verified(cross_db),
-            counts)
+            counts, cfg_t, root, (K, R, t))
 
 
 def test_same_pairs_verified(runs):
-    jax_m, torch_m, _, counts = runs
+    jax_m, torch_m, _, counts = runs[:4]
     assert set(jax_m) == set(torch_m) and len(jax_m) == 6
     good = lambda m: {p for p, n in m.items() if n >= MIN_VERIFIED}  # noqa: E731
     assert good(torch_m) == good(jax_m)
@@ -82,14 +83,81 @@ def test_same_pairs_verified(runs):
 
 
 def test_per_pair_counts_within_ten_percent(runs):
-    jax_m, torch_m, _, _ = runs
+    jax_m, torch_m = runs[:2]
     for p, n in jax_m.items():
         assert abs(torch_m[p] - n) <= 0.1 * max(n, torch_m[p]), (p, n, torch_m[p])
 
 
 def test_reference_matcher_reads_port_database(runs):
-    _, torch_m, cross_m, _ = runs
+    _, torch_m, cross_m = runs[:3]
     good = lambda m: {p for p, n in m.items() if n >= MIN_VERIFIED}  # noqa: E731
     assert good(cross_m) == good(torch_m)
     for p, n in torch_m.items():
         assert abs(cross_m[p] - n) <= 0.1 * max(n, cross_m[p]), (p, n, cross_m[p])
+
+
+def test_reconstruct_on_port_database_is_read_by_reference(runs):
+    from monocularsfm_torch import cli as torch_cli
+    from monocularsfm_tpu.io.colmap import read_colmap
+    from monocularsfm_tpu.io.openmvs import read_openmvs_summary
+
+    cfg, root, (K, R, t) = runs[4], runs[5], runs[6]
+    cfg.output_path = str(root / "torch_out")
+    cfg.camera.fx, cfg.camera.fy = K[0, 0], K[1, 1]
+    cfg.camera.cx, cfg.camera.cy = K[0, 2], K[1, 2]
+    cfg.initializer.init_min_num_inliers = 50     # 320x240 views, few matches
+    builder = torch_cli.cmd_reconstruct(cfg, device="cpu", log=lambda *a: None)
+    st = builder.map.statistics()
+    assert st.num_registered_images >= 3 and st.num_points3D > 50
+    assert st.mean_reprojection_error < 1.0
+    model = read_colmap(root / "torch_out" / "colmap")
+    assert sorted(model["images"]) == sorted(builder.map.registered_ids)
+    assert len(model["points"]) == st.num_points3D
+    for i, im in model["images"].items():
+        np.testing.assert_allclose(im["R"], builder.map.images[i].R, atol=1e-5)
+    mvs = read_openmvs_summary(root / "torch_out" / "scene.mvs")
+    assert mvs["images"] == 4 and mvs["posed_images"] == st.num_registered_images
+    assert len(list((root / "torch_out" / "undistorted_images").glob("*.png"))) == 4
+    for name in ("cloud.ply", "cloud_binary.ply"):
+        assert (root / "torch_out" / name).stat().st_size > 0
+
+
+@pytest.mark.parametrize("command", ["reconstruct", "pipeline"])
+def test_cli_runs_on_cpu(runs, tmp_path, command):
+    """`sfm-torch reconstruct|pipeline cfg.yaml --device cpu`: reconstruct on
+    a copy of the port's database, pipeline from the PNGs into a new one."""
+    from monocularsfm_torch import cli as torch_cli
+    from monocularsfm_tpu.io.colmap import read_colmap
+
+    cfg, (K, _, _) = runs[4], runs[6]
+    db = tmp_path / "cli.db"
+    if command == "reconstruct":
+        shutil.copy(cfg.database_path, db)
+    out = tmp_path / "out"
+    cfg_path = tmp_path / "cfg.yaml"
+    cfg_path.write_text(
+        f"images_path: {cfg.images_path}\n"
+        f"database_path: {db}\n"
+        f"output_path: {out}\n"
+        f"camera: {{fx: {K[0, 0]}, fy: {K[1, 1]}, cx: {K[0, 2]}, cy: {K[1, 2]}}}\n"
+        f"initializer: {{init_min_num_inliers: 50}}\n")
+    assert torch_cli.main([command, str(cfg_path), "--device", "cpu"]) == 0
+    model = read_colmap(out / "colmap")
+    assert len(model["images"]) >= 3 and len(model["points"]) > 50
+    for name in ("cloud.ply", "cloud_binary.ply", "scene.mvs"):
+        assert (out / name).stat().st_size > 0
+
+
+def test_cli_refuses_cuda_without_a_card(runs, tmp_path):
+    import torch
+
+    from monocularsfm_torch import cli as torch_cli
+
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is visible here")
+    cfg_path = tmp_path / "cfg.yaml"
+    cfg_path.write_text(f"images_path: {runs[4].images_path}\n"
+                        f"database_path: {tmp_path / 'x.db'}\n")
+    for cmd in ("reconstruct", "pipeline"):
+        with pytest.raises(RuntimeError, match="cuda"):
+            torch_cli.main([cmd, str(cfg_path)])
