@@ -3,7 +3,11 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from monocularsfm_torch/csrc, checks each against its
-plain PyTorch version on the card, checks the port's SIFT on the card
+plain PyTorch version on the card at the main path's shapes (the matcher
+over 16 pairs at capacity 8192, plus a case of exact ties and a fully
+masked image that must equal the plain statistics), times each beside its
+plain version, the bound of its work and one library call of the same
+function where there is one, checks the port's SIFT on the card
 against the same SIFT on the CPU, then drives the port's extract and match
 stages (`sfm-torch extract`, `match`, `check-matches`) on 8 rendered
 1280x960 images at the default configuration.  Then bundle adjustment on
@@ -34,7 +38,7 @@ import torch
 SEED = 0
 BLUR_SHAPE = (4, 1920, 2560)    # octave 0 of a 4-image batch at 1280x960
 BLUR_TOL = 1e-5
-MATCH_CAP, MATCH_IMAGES = 8192, 8
+MATCH_CAP, MATCH_IMAGES = 8192, 16   # one batch of 16 pairs (config.py)
 MATCH_AGREE = 0.999
 SIM_TOL = 1e-4                  # f32 sums of 128 bf16 products, any order
 SIFT_SIZE = (480, 640)
@@ -104,43 +108,63 @@ def phase_build():
     _build.lib()
     log(f"[build] {path.name} in {time.perf_counter() - t0:.2f}s "
         f"(nvcc {_build.build_seconds if _build.build_seconds is not None else 'cached'})")
+    for line in _build.build_log.splitlines():
+        if "registers" in line or "spill" in line or "C75" in line:
+            log(f"[build] {line.strip()}")
 
 
 def check_blur(dev):
+    import torch.nn.functional as F
+
     from monocularsfm_torch.ops import blur
     from monocularsfm_torch.ops.sift import _OCT_KER, gaussian_kernel1d, SIGMA0, INIT_SIGMA
+    from monocularsfm_torch.utils import roofline
 
     g = torch.Generator(dev).manual_seed(SEED)
     base = torch.rand(BLUR_SHAPE, generator=g, device=dev)
     kb = gaussian_kernel1d(math.sqrt(SIGMA0 ** 2 - 4.0 * INIT_SIGMA ** 2))
     rows = []
     for name, taps_np in (("base C=1 T=9", kb[None]), ("octave C=5 T=31", _OCT_KER)):
-        taps = torch.as_tensor(taps_np, device=dev)
-        v_k, v_p = blur.blur_v(base, taps), blur.blur_v_plain(base, taps)
+        host = torch.as_tensor(taps_np)
+        taps = host.to(dev)
+        v_k, v_p = blur.blur_v(base, host), blur.blur_v_plain(base, taps)
         h_k, h_p = blur.blur_h(v_p, taps), blur.blur_h_plain(v_p, taps)
-        full = (blur.blur_multi(base, taps)
+        full = (blur.blur_multi(base, host)
                 - blur.blur_multi_plain(base, taps)).abs().max().item()
         err_v = (v_k - v_p).abs().max().item()
         err_h = (h_k - h_p).abs().max().item()
         if not (err_v <= BLUR_TOL and err_h <= BLUR_TOL and full <= BLUR_TOL):
             fail(f"blur {name}: max abs err v {err_v} h {err_h} both {full} "
                  f"> {BLUR_TOL}")
+        C, T = taps.shape
+        r = (T - 1) // 2
+        pad_v = F.pad(base[:, None], (0, 0, r, r), mode="replicate")
+        pad_h = F.pad(v_p, (r, r, 0, 0), mode="replicate")
+        kv, kh = taps[:, None, :, None], taps[:, None, None, :]
         t = dict(
-            v=time_ms(lambda: blur.blur_v(base, taps)),
+            v=time_ms(lambda: blur.blur_v(base, host)),
             v_plain=time_ms(lambda: blur.blur_v_plain(base, taps)),
+            v_library=time_ms(lambda: F.conv2d(pad_v, kv)),
             h=time_ms(lambda: blur.blur_h(v_p, taps)),
             h_plain=time_ms(lambda: blur.blur_h_plain(v_p, taps)),
+            h_library=time_ms(lambda: F.conv2d(pad_h, kh, groups=C)),
         )
+        t["v_bound"], t["v_bound_by"] = roofline.bound(
+            *roofline.blur_v_work(*BLUR_SHAPE, C, T), "fp32")
+        t["h_bound"], t["h_bound_by"] = roofline.bound(
+            *roofline.blur_h_work(*BLUR_SHAPE, C, T), "fp32")
         log(f"[blur] {name} at {BLUR_SHAPE}: err v {err_v:.3g} h {err_h:.3g} "
-            f"both {full:.3g} | v {t['v']:.3f} ms (plain {t['v_plain']:.3f}) "
-            f"h {t['h']:.3f} ms (plain {t['h_plain']:.3f})")
+            f"both {full:.3g} | v {t['v']:.4f} ms (bound {t['v_bound']:.4f}, "
+            f"plain {t['v_plain']:.3f}, conv2d {t['v_library']:.3f}) "
+            f"h {t['h']:.4f} ms (bound {t['h_bound']:.4f}, plain "
+            f"{t['h_plain']:.3f}, conv2d {t['h_library']:.3f})")
         rows.append((name, err_v, err_h, t))
     return rows
 
 
 def match_bank(dev):
     """base + 0.35 noise descriptors, unit rows (the repo bench's
-    _match_bank recipe)."""
+    _match_bank recipe); 16 pairs of neighbouring images."""
     rng = np.random.default_rng(11)
     base = rng.standard_normal((MATCH_CAP, 128)).astype(np.float32)
     descs = []
@@ -155,10 +179,37 @@ def match_bank(dev):
     return bank, mask, pairs
 
 
+def check_matcher_ties(dev):
+    """Exact ties and a fully masked image: descriptors drawn from 12 rows
+    with entries in {-1, 0, 1} / 8, so every similarity is exact in f32 in
+    any order of summation; the statistics must equal the plain ones."""
+    from monocularsfm_torch.ops import match_kernel
+
+    rng = np.random.default_rng(3)
+    cap = 1024
+    atoms = rng.integers(-1, 2, size=(12, 128)).astype(np.float32) / 8
+    bank = torch.from_numpy(atoms[rng.integers(0, 12, size=(4, cap))]).to(
+        dev, torch.bfloat16)
+    mask = torch.from_numpy(rng.random((4, cap)) < 0.9).to(dev)
+    mask[2] = False
+    pairs = torch.tensor([[0, 1], [2, 1], [1, 2], [3, 3]], dtype=torch.int32,
+                         device=dev)
+    sk = match_kernel.match_stats(bank, mask, pairs)
+    sp = match_kernel.match_stats_plain_batch(bank, mask, pairs)
+    torch.cuda.synchronize()
+    same = [torch.equal(a, b) for a, b in zip(sk, sp)]
+    log(f"[match] exact ties + fully masked image, cap {cap}: statistics "
+        f"equal to plain {same}")
+    if not all(same):
+        fail(f"matcher tie/mask case differs from the plain statistics: {same}")
+
+
 def check_matcher(dev):
     from monocularsfm_torch.ops import match_kernel
     from monocularsfm_torch.ops.matching import match_pairs_batch
+    from monocularsfm_torch.utils import roofline
 
+    check_matcher_ties(dev)
     bank, mask, pairs = match_bank(dev)
     sk = match_kernel.match_stats(bank, mask, pairs)
     sp = match_kernel.match_stats_plain_batch(bank, mask, pairs)
@@ -172,15 +223,28 @@ def check_matcher(dev):
     log(f"[match] cap {MATCH_CAP}, {len(pairs)} pairs: sim err {sim_err:.3g}, "
         f"argmax agreement {arg_agree:.6f}, idx agreement {agree:.6f}, "
         f"matched share {matched:.3f}")
-    if not (agree >= MATCH_AGREE and sim_err <= SIM_TOL and matched > 0.5):
-        fail(f"matcher disagrees: idx agreement {agree} (need {MATCH_AGREE}), "
-             f"sim err {sim_err} (tol {SIM_TOL}), matched share {matched}")
-    t_k = time_ms(lambda: match_kernel.match_tile_partials(bank, mask, pairs), 5)
-    t_p = time_ms(lambda: match_kernel.match_stats_plain_batch(bank, mask, pairs), 3)
-    flops = 2.0 * len(pairs) * MATCH_CAP * MATCH_CAP * 128
-    log(f"[match] kernel {t_k:.3f} ms ({flops / t_k / 1e9:.1f} TFLOP/s fp32 FMA) "
-        f"| plain {t_p:.3f} ms for {len(pairs)} pairs")
-    return sim_err, agree, t_k, t_p
+    if not (agree >= MATCH_AGREE and arg_agree >= MATCH_AGREE
+            and sim_err <= SIM_TOL and matched > 0.5):
+        fail(f"matcher disagrees: idx agreement {agree}, argmax agreement "
+             f"{arg_agree} (need {MATCH_AGREE}), sim err {sim_err} (tol "
+             f"{SIM_TOL}), matched share {matched}")
+    A, B = bank[pairs[:, 0].long()], bank[pairs[:, 1].long()]
+    rows, cols = match_kernel.match_tile_partials(bank, mask, pairs)
+    t = dict(
+        kernel=time_ms(lambda: match_kernel.launch(bank, mask, pairs, rows, cols), 10),
+        whole=time_ms(lambda: match_kernel.match_stats(bank, mask, pairs), 10),
+        plain=time_ms(lambda: match_kernel.match_stats_plain_batch(bank, mask, pairs), 3),
+        library=time_ms(lambda: torch.bmm(A, B.transpose(1, 2)), 10),
+    )
+    nbytes, ops = roofline.match_work(mask.sum(1).tolist(), pairs.tolist(), MATCH_CAP)
+    t["bound"], t["bound_by"] = roofline.bound(nbytes, ops, "bf16")
+    log(f"[match] kernel {t['kernel']:.4f} ms ({ops / t['kernel'] / 1e9:.1f} "
+        f"TFLOP/s bf16), match_stats whole (checks, kernel, merge) "
+        f"{t['whole']:.4f} ms, bound "
+        f"{t['bound']:.4f} ms ({t['bound_by']}), plain {t['plain']:.3f} ms, "
+        f"bf16 bmm of the product alone {t['library']:.3f} ms, for "
+        f"{len(pairs)} pairs")
+    return sim_err, agree, t
 
 
 def phase_sift(dev):
@@ -535,7 +599,7 @@ def main():
 
     phase_build()
     blur_rows = check_blur(dev)
-    sim_err, agree, t_k, t_p = check_matcher(dev)
+    sim_err, agree, tm = check_matcher(dev)
     phase_sift(dev)
     launches_slice, ips, pps = phase_slice(dev)
     walls = {}
@@ -553,26 +617,33 @@ def main():
     rates.update(quality, phase_wall_s=walls)
 
     _, err_v, err_h, t = blur_rows[1]  # the octave stack dominates
+    base_t = blur_rows[0][3]
+
+    def entry(name, source, line, err, ms, plain, bound, by, library, **extra):
+        return {"name": name, "route": "cuda",
+                "source": f"monocularsfm_torch/csrc/{source}",
+                "replaces": f"monocularsfm_tpu/ops/{line}",
+                "launches": launches[name],
+                "launches_extract_match": launches_slice[name],
+                "max_abs_err": err, "ms": ms, "plain_ms": plain,
+                "bound_ms": bound, "bound_by": by,
+                "bound_share": bound / ms, "library_ms": library, **extra}
+
     kernels = [
-        {"name": "blur_v", "route": "cuda",
-         "source": "monocularsfm_torch/csrc/blur.cu",
-         "replaces": "monocularsfm_tpu/ops/pallas_blur.py:42",
-         "launches": launches["blur_v"],
-         "launches_extract_match": launches_slice["blur_v"], "max_abs_err": err_v,
-         "ms": t["v"], "plain_ms": t["v_plain"]},
-        {"name": "blur_h", "route": "cuda",
-         "source": "monocularsfm_torch/csrc/blur.cu",
-         "replaces": "monocularsfm_tpu/ops/pallas_blur.py:59",
-         "launches": launches["blur_h"],
-         "launches_extract_match": launches_slice["blur_h"], "max_abs_err": err_h,
-         "ms": t["h"], "plain_ms": t["h_plain"]},
-        {"name": "match_tile", "route": "cuda",
-         "source": "monocularsfm_torch/csrc/match_tile.cu",
-         "replaces": "monocularsfm_tpu/ops/pallas_matching.py:39",
-         "launches": launches["match_tile"],
-         "launches_extract_match": launches_slice["match_tile"],
-         "max_abs_err": sim_err,
-         "index_agreement": agree, "ms": t_k, "plain_ms": t_p},
+        entry("blur_v", "blur.cu", "pallas_blur.py:42", err_v, t["v"],
+              t["v_plain"], t["v_bound"], t["v_bound_by"], t["v_library"],
+              base_c1_t9={k: base_t[k] for k in ("v", "v_plain", "v_bound",
+                                                 "v_library")}),
+        entry("blur_h", "blur.cu", "pallas_blur.py:59", err_h, t["h"],
+              t["h_plain"], t["h_bound"], t["h_bound_by"], t["h_library"],
+              base_c1_t9={k: base_t[k] for k in ("h", "h_plain", "h_bound",
+                                                 "h_library")}),
+        entry("match_tile", "match_tile.cu", "pallas_matching.py:39", sim_err,
+              tm["kernel"], tm["plain"], tm["bound"], tm["bound_by"],
+              tm["library"], index_agreement=agree,
+              match_stats_whole_ms=tm["whole"],
+              library_is="bf16 torch.bmm of the product alone, not the same function",
+              shape={"pairs": MATCH_IMAGES, "capacity": MATCH_CAP}),
     ]
     print(smi)
     print(json.dumps({"kernels": kernels, "extract_images_per_s": ips,

@@ -1,10 +1,11 @@
 """Native (C++) host-runtime components, loaded via ctypes.
 
-The port builds the reference's own scene-graph core,
-`monocularsfm_tpu/native/scene_graph_core.cpp`, by reading it (nothing is
-written next to it): g++ compiles it at first use into
-`build/monocularsfm_torch/` at the root of the checkout, under a name that
-carries a hash of the source and flags, so an edited source is rebuilt.
+The port keeps its own copy of the scene-graph core,
+`scene_graph_core.cpp` beside this file (byte-equal to the JAX package's
+`native/scene_graph_core.cpp`; tests/test_torch_copies.py holds it so):
+g++ compiles it at first use into `build/monocularsfm_torch/` at the root
+of the checkout, under a name that carries a hash of the source and flags,
+so an edited source is rebuilt.
 The API (`get_lib()`, `available()`) is the reference's, so the copied
 `reconstruction/map_state.py` runs unchanged.  A failed build or load
 raises; the numpy track-maintenance path stays selectable with
@@ -21,8 +22,9 @@ import subprocess
 
 import numpy as np
 
-_ROOT = pathlib.Path(__file__).resolve().parent.parent.parent
-SRC = _ROOT / "monocularsfm_tpu" / "native" / "scene_graph_core.cpp"
+_HERE = pathlib.Path(__file__).resolve().parent
+_ROOT = _HERE.parent.parent
+SRC = _HERE / "scene_graph_core.cpp"
 BUILD_DIR = _ROOT / "build" / "monocularsfm_torch"
 FLAGS = ["-O3", "-std=c++17", "-shared", "-fPIC"]
 

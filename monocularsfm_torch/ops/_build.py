@@ -1,10 +1,13 @@
 """Builds csrc/*.cu into one shared library at first use and loads it.
 
 nvcc compiles the sources with a plain C interface (no PyTorch headers, so
-the build takes seconds) into `build/monocularsfm_torch/` at the root of the
+the build takes seconds), one process per source, all started together,
+then links them into `build/monocularsfm_torch/` at the root of the
 checkout; the file name carries a hash of the sources, so an edited kernel
-is rebuilt.  The library is loaded with ctypes and every entry point gets
-its argtypes.  A failed build or load raises: there is no fallback.
+is rebuilt.  `build_log` keeps what ptxas said of each kernel (registers,
+shared memory, spills).  The library is loaded with ctypes and every entry
+point gets its argtypes.  A failed build or load raises: there is no
+fallback.
 """
 
 from __future__ import annotations
@@ -22,7 +25,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "monocularsfm_torch"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
 _P = ctypes.c_void_p
@@ -32,13 +35,14 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "sfm_blur_v": ([_P, _P, _P, _I, _I, _I, _I, _I, _P], _I),
     "sfm_blur_h": ([_P, _P, _P, _I, _I, _I, _I, _I, _P], _I),
-    "sfm_match_tile": ([_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
-                       _I),
+    "sfm_match_tile": ([_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                        _P], _I),
     "sfm_error_string": ([_I], ctypes.c_char_p),
 }
 
 _lib = None
 build_seconds = None  # wall time of the build this process made, if any
+build_log = ""        # the compilers' messages of that build
 
 
 def _nvcc() -> str:
@@ -68,23 +72,42 @@ def library_path() -> pathlib.Path:
     return BUILD_DIR / f"libsfm_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run(cmds) -> str:
+    """Run the commands together; wait for all, then raise if any failed.
+    Returns their messages."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for cmd in cmds]
+    results = [proc.communicate() for proc in procs]
+    for cmd, proc, (stdout, stderr) in zip(cmds, procs, results):
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                               f"{' '.join(cmd)}\n{stdout}\n{stderr}")
+    return "".join(stdout + stderr for stdout, stderr in results)
+
+
 def build() -> pathlib.Path:
     """Compile the kernels unless this exact build exists already."""
-    global build_seconds
+    global build_seconds, build_log
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
+    tag = f"{out.stem}.{os.getpid()}"
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}\n"
-            f"{res.stdout}\n{res.stderr}")
+    nvcc, srcs = _nvcc(), _sources()
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in srcs]
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    try:
+        log = _run([[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                    for src, obj in zip(srcs, objs)])
+        log += _run([[nvcc, "-shared", "-o", str(tmp), *map(str, objs)]])
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     os.replace(tmp, out)
     build_seconds = time.perf_counter() - t0
+    build_log = log
     return out
 
 

@@ -54,16 +54,18 @@ def blur_h_plain(v: torch.Tensor, taps: torch.Tensor) -> torch.Tensor:
 
 
 def blur_v(base: torch.Tensor, taps: torch.Tensor) -> torch.Tensor:
-    """Kernel 1 (CUDA tensors) or its plain version (CPU tensors)."""
+    """Kernel 1 (CUDA tensors) or its plain version (CPU tensors).  The
+    kernel reads the taps on the host: pass them as a CPU tensor, since a
+    CUDA one is copied back first."""
     if base.device.type == "cpu":
         return blur_v_plain(base, taps)
     _check(base, 3, "blur_v")
-    taps = _taps_on(taps, base.device)
+    host = _taps_on(taps, "cpu")
     B, H, W = base.shape
-    C, T = taps.shape
+    C, T = host.shape
     out = torch.empty((B, C, H, W), device=base.device, dtype=torch.float32)
     _build.check(_build.lib().sfm_blur_v(
-        base.data_ptr(), taps.data_ptr(), out.data_ptr(), B, H, W, C, T,
+        base.data_ptr(), host.data_ptr(), out.data_ptr(), B, H, W, C, T,
         _build.stream_ptr(base.device)), "sfm_blur_v")
     LAUNCHES["blur_v"] += 1
     return out

@@ -4,10 +4,11 @@ The counterpart of monocularsfm_tpu/ops/pallas_matching.py.  For each image
 pair of a batch, `match_stats` returns six (P, N) statistics of the masked
 bf16 similarity matrix A.B^T: per row of A the best similarity, its column
 and the runner-up, and the same per column of B.  On a CUDA tensor it
-launches csrc/match_tile.cu, which writes per-tile partials that
-`_merge_partials` folds together here in plain torch, as the reference does
-after its pallas_call; on a CPU tensor it runs `match_stats_plain`, the
-column-tiled scan of the reference's XLA matcher (ops/matching.py there).
+launches csrc/match_tile.cu, which writes the row statistics final and the
+column statistics per block of 128 rows; `_merge_partials` folds those
+blocks together here in plain torch, as the reference does after its
+pallas_call.  On a CPU tensor it runs `match_stats_plain`, the column-tiled
+scan of the reference's XLA matcher (ops/matching.py there).
 
 Tie rules, shared by both: the first index wins within a tile, the earlier
 tile wins across tiles, masked entries are NEG, so the statistics equal a
@@ -21,7 +22,8 @@ import torch
 from monocularsfm_torch.ops import _build
 
 NEG = -1e30
-TILE = 128  # the kernel's tile side; N must be a multiple of it
+TILE = 128   # the kernel's tile side; N must be a multiple of it
+DEPTH = 128  # the only descriptor length the kernel takes
 
 LAUNCHES = {"match_tile": 0}
 
@@ -80,31 +82,55 @@ def match_stats_plain_batch(bank, mask, pair_ids, col_tile: int = 1024):
     return tuple(torch.stack(s) for s in zip(*out))
 
 
+def column_partials_plain(bank, mask, pair_ids):
+    """The kernel's column partials, computed plainly: for every pair and
+    every block of TILE rows of A, each column's max, its first-index row
+    and runner-up over that block.  Three (P, N / TILE, N) tensors."""
+    out = []
+    for ia, ib in pair_ids.tolist():
+        a = bank[ia].to(torch.bfloat16).float()
+        b = bank[ib].to(torch.bfloat16).float()
+        sims = a @ b.T
+        sims = torch.where(mask[ia][:, None] & mask[ib][None, :], sims, NEG)
+        blocks = [_top2(sims[r:r + TILE], 0) for r in range(0, len(a), TILE)]
+        t1, i1, t2 = (torch.stack(x) for x in zip(*blocks))
+        i1 = i1 + torch.arange(0, len(a), TILE, dtype=torch.int32,
+                               device=i1.device)[:, None]
+        out.append((t1, i1, t2))
+    return tuple(torch.stack(x) for x in zip(*out))
+
+
 # -- kernel ---------------------------------------------------------------
 
 def _merge_partials(t1p, i1p, t2p):
-    """Fold (P, G, N) per-tile partials along G into three (P, N)."""
-    g = torch.argmax(t1p, dim=1, keepdim=True)              # first tile wins
+    """Fold (P, G, N) per-block partials along G into three (P, N)."""
+    g = torch.argmax(t1p, dim=1, keepdim=True)              # first block wins
     t1 = torch.gather(t1p, 1, g)[:, 0]
     i1 = torch.gather(i1p, 1, g)[:, 0]
-    tiles = torch.arange(t1p.shape[1], device=t1p.device)[None, :, None]
-    t2 = torch.where(tiles == g, t2p, t1p).amax(dim=1)
+    blocks = torch.arange(t1p.shape[1], device=t1p.device)[None, :, None]
+    t2 = torch.where(blocks == g, t2p, t1p).amax(dim=1)
     return t1, i1, t2
 
 
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """`t` contiguous at a 16-byte aligned address (TMA's requirement)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def match_tile_partials(bank, mask, pair_ids):
-    """Launch kernel 3.  bank (I, N, D) bf16, mask (I, N) bool, pair_ids
-    (P, 2) int32, all on one CUDA device.  Returns the row partials and the
-    column partials, each (t1 f32, argmax int32, t2 f32) of shape
-    (P, N / TILE, N)."""
+    """Launch kernel 3.  bank (I, N, 128) bf16, mask (I, N) bool, pair_ids
+    (P, 2) int32, all on one CUDA device.  Returns the row statistics, each
+    (P, N), and the column partials, each (P, N / TILE, N): (t1 f32,
+    argmax int32, t2 f32) both."""
     dev = bank.device
     if bank.dtype != torch.bfloat16 or bank.dim() != 3:
         raise ValueError(f"bank must be (I, N, D) bfloat16, got "
                          f"{tuple(bank.shape)} {bank.dtype}")
     I, N, D = bank.shape
-    if N % TILE or D % 32:
+    if N % TILE or D != DEPTH:
         raise ValueError(f"bank capacity {N} must be a multiple of {TILE} "
-                         f"and depth {D} of 32")
+                         f"and depth {D} must be {DEPTH}")
     if mask.dtype != torch.bool or tuple(mask.shape) != (I, N):
         raise ValueError(f"mask must be ({I}, {N}) bool")
     if (pair_ids.dtype != torch.int32 or pair_ids.dim() != 2
@@ -114,20 +140,28 @@ def match_tile_partials(bank, mask, pair_ids):
         raise ValueError("bank, mask and pair_ids must share one device")
     if pair_ids.numel() and (int(pair_ids.min()) < 0 or int(pair_ids.max()) >= I):
         raise ValueError(f"pair_ids outside the bank's {I} images")
-    bank, mask, pair_ids = (t.contiguous() for t in (bank, mask, pair_ids))
+    bank, mask, pair_ids = _aligned(bank), _aligned(mask), pair_ids.contiguous()
     P, G = pair_ids.shape[0], N // TILE
     f32 = dict(device=dev, dtype=torch.float32)
     i32 = dict(device=dev, dtype=torch.int32)
-    rt1, rt2, ct1, ct2 = (torch.empty((P, G, N), **f32) for _ in range(4))
-    ri1, ci1 = (torch.empty((P, G, N), **i32) for _ in range(2))
-    lib = _build.lib()
-    _build.check(lib.sfm_match_tile(
+    rows = (torch.empty((P, N), **f32), torch.empty((P, N), **i32),
+            torch.empty((P, N), **f32))
+    cols = (torch.empty((P, G, N), **f32), torch.empty((P, G, N), **i32),
+            torch.empty((P, G, N), **f32))
+    launch(bank, mask, pair_ids, rows, cols)
+    return rows, cols
+
+
+def launch(bank, mask, pair_ids, rows, cols) -> None:
+    """The bare launch of kernel 3 into given outputs, for inputs that
+    `match_tile_partials` has checked (bank and mask 16-byte aligned)."""
+    I, N, D = bank.shape
+    _build.check(_build.lib().sfm_match_tile(
         bank.data_ptr(), mask.data_ptr(), pair_ids.data_ptr(),
-        rt1.data_ptr(), ri1.data_ptr(), rt2.data_ptr(),
-        ct1.data_ptr(), ci1.data_ptr(), ct2.data_ptr(),
-        P, N, D, _build.stream_ptr(dev)), "sfm_match_tile")
+        *(t.data_ptr() for t in rows), *(t.data_ptr() for t in cols),
+        I, pair_ids.shape[0], N, D, _build.stream_ptr(bank.device)),
+        "sfm_match_tile")
     LAUNCHES["match_tile"] += 1
-    return (rt1, ri1, rt2), (ct1, ci1, ct2)
 
 
 def match_stats(bank, mask, pair_ids, col_tile: int = 1024):
@@ -140,4 +174,4 @@ def match_stats(bank, mask, pair_ids, col_tile: int = 1024):
     if bank.device.type != "cuda":
         raise ValueError(f"match_stats: unsupported device {bank.device}")
     rows, cols = match_tile_partials(bank, mask, pair_ids)
-    return _merge_partials(*rows) + _merge_partials(*cols)
+    return rows + _merge_partials(*cols)

@@ -123,7 +123,7 @@ def _upsample2x(imgs: torch.Tensor) -> torch.Tensor:
 def _build_octave_batched(base_b: torch.Tensor) -> torch.Tensor:
     """(B, H, W) octave bases -> (B, S+3, H, W) gaussian stacks, every scale
     blurred directly from the base with its composed sigma."""
-    taps = torch.as_tensor(_OCT_KER, device=base_b.device)
+    taps = torch.as_tensor(_OCT_KER)  # on the host: blur_v reads them there
     return torch.cat([base_b[:, None], blur_multi(base_b, taps)], dim=1)
 
 
@@ -460,7 +460,7 @@ def _extract_all(imgs, num_octaves: int, k_sched: tuple, contrast_thr: float,
     else:
         base = imgs
         sigma_diff = math.sqrt(max(SIGMA0 ** 2 - INIT_SIGMA ** 2, 0.01))
-    kb = torch.as_tensor(gaussian_kernel1d(sigma_diff), device=imgs.device)
+    kb = torch.as_tensor(gaussian_kernel1d(sigma_diff))
     g = blur_multi(base.contiguous(), kb[None, :])[:, 0]
     oct_kp, oct_desc, oct_valid = [], [], []
     for o in range(num_octaves):

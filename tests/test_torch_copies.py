@@ -13,14 +13,23 @@ REPO = pathlib.Path(__file__).resolve().parent.parent
 COPIED = ["types.py", "config.py", "database.py", "utils/timer.py",
           "utils/caps.py", "reconstruction/scene_graph.py",
           "reconstruction/register_graph.py", "reconstruction/map_state.py",
-          "io/ply.py"]
+          "io/ply.py", "native/scene_graph_core.cpp"]
 
 
 @pytest.mark.parametrize("rel", COPIED)
 def test_copied_module_equals_source_outside_imports(rel):
-    src = (REPO / "monocularsfm_tpu" / rel).read_text()
-    port = (REPO / "monocularsfm_torch" / rel).read_text()
-    assert src.replace("monocularsfm_tpu", "monocularsfm_torch") == port
+    src = (REPO / "monocularsfm_tpu" / rel).read_bytes()
+    port = (REPO / "monocularsfm_torch" / rel).read_bytes()
+    if rel.endswith(".py"):
+        src = src.replace(b"monocularsfm_tpu", b"monocularsfm_torch")
+    assert src == port
+
+
+def test_native_core_builds_from_the_ports_copy():
+    from monocularsfm_torch import native
+
+    assert native.SRC == REPO / "monocularsfm_torch" / "native" / "scene_graph_core.cpp"
+    assert "monocularsfm_tpu" not in native.SRC.read_text()
 
 
 def test_constant_tables_equal_reference_exactly():

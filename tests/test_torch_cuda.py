@@ -39,6 +39,28 @@ def test_blur_kernels_match_plain(dev, which, shape):
     assert (out - blur.blur_multi_plain(base, taps)).abs().max().item() <= 1e-5
 
 
+@pytest.mark.parametrize("taps_kind", ["base", "octave", "generic3x7", "generic1x11"])
+@pytest.mark.parametrize("shape", [(2, 20, 36), (1, 50, 10), (3, 200, 260)])
+def test_blur_v_instantiations_match_plain(dev, taps_kind, shape):
+    """Both compiled-in (C, T), the runtime instantiation, W % 4 == 0 and
+    ragged widths, H < T."""
+    rng = np.random.default_rng(len(taps_kind) + shape[1])
+    taps = {
+        "base": gaussian_kernel1d(math.sqrt(SIGMA0 ** 2 - 4 * INIT_SIGMA ** 2))[None],
+        "octave": _OCT_KER,
+        "generic3x7": rng.random((3, 7)).astype(np.float32),
+        "generic1x11": gaussian_kernel1d(1.52)[None],
+    }[taps_kind]
+    base = torch.from_numpy(rng.random(shape, dtype=np.float32)).to(dev)
+    for t in (torch.as_tensor(taps), torch.as_tensor(taps, device=dev)):
+        blur.reset_launches()
+        out = blur.blur_v(base, t)
+        torch.cuda.synchronize()
+        assert blur.LAUNCHES["blur_v"] == 1
+        assert out.shape == (shape[0], taps.shape[0], *shape[1:])
+        assert (out - blur.blur_v_plain(base, t)).abs().max().item() <= 1e-5
+
+
 def test_blur_rejects_what_the_kernel_does_not_take(dev):
     taps = torch.as_tensor(_OCT_KER, device=dev)
     with pytest.raises(ValueError):
@@ -76,6 +98,72 @@ def test_match_kernel_matches_plain(dev, cap):
     assert (ik >= 0).sum().item() > cap
 
 
+def _noisy_bank(rng, images, cap, noise=0.35):
+    base = rng.standard_normal((cap, 128)).astype(np.float32)
+    descs = []
+    for _ in range(images):
+        d = base + noise * rng.standard_normal(base.shape).astype(np.float32)
+        descs.append(d / np.linalg.norm(d, axis=1, keepdims=True))
+    return np.stack(descs)
+
+
+def _assert_stats_agree(sk, sp):
+    for a, b in zip(sk, sp):
+        assert a.shape == b.shape
+        if a.dtype == torch.float32:
+            assert (a - b).abs().max().item() <= 1e-4
+        else:
+            assert (a == b).float().mean().item() >= 0.999
+
+
+@pytest.mark.parametrize("cap,pairs", [(128, 128), (1024, 16), (2048, 16)])
+def test_match_kernel_shapes_of_the_path(dev, cap, pairs):
+    """The preemptive path (N = 128, 128 pairs) and the normal path's batch
+    of 16 pairs, with ragged masks and one fully masked image."""
+    rng = np.random.default_rng(cap + pairs)
+    images = 6
+    bank = torch.from_numpy(_noisy_bank(rng, images, cap)).to(dev, torch.bfloat16)
+    valid = rng.integers(cap // 2, cap + 1, size=images)
+    valid[3] = 0                                   # image 3: nothing valid
+    mask = torch.from_numpy(np.arange(cap)[None] < valid[:, None]).to(dev)
+    pair_ids = torch.from_numpy(
+        rng.integers(0, images, size=(pairs, 2)).astype(np.int32)).to(dev)
+    pair_ids[0] = torch.tensor([3, 1])
+    pair_ids[1] = torch.tensor([2, 3])
+    match_kernel.reset_launches()
+    sk = match_kernel.match_stats(bank, mask, pair_ids)
+    torch.cuda.synchronize()
+    assert match_kernel.LAUNCHES["match_tile"] == 1
+    sp = match_kernel.match_stats_plain_batch(bank, mask, pair_ids, col_tile=128)
+    _assert_stats_agree(sk, sp)
+    ik = match_pairs_batch(bank, mask, pair_ids)
+    ip = match_pairs_batch(bank, mask, pair_ids, kernel=False)
+    assert (ik == ip).float().mean().item() >= 0.999
+    assert (ik[:2] == -1).all()                    # the masked image matches nothing
+
+
+@pytest.mark.parametrize("cap", [128, 512])
+def test_match_kernel_exact_ties_and_full_mask_equal_plain(dev, cap):
+    """Descriptors drawn from 12 distinct rows with entries in {-1, 0, 1} / 8:
+    every similarity is exact in f32 whatever the order of the sums, rows and
+    columns tie everywhere, and the first index must win; image 2 is fully
+    masked.  The kernel's statistics equal the plain ones exactly."""
+    rng = np.random.default_rng(cap)
+    atoms = rng.integers(-1, 2, size=(12, 128)).astype(np.float32) / 8
+    bank = atoms[rng.integers(0, 12, size=(4, cap))]
+    mask = rng.random((4, cap)) < 0.9
+    mask[2] = False
+    bank = torch.from_numpy(bank).to(dev, torch.bfloat16)
+    mask = torch.from_numpy(mask).to(dev)
+    pair_ids = torch.tensor([[0, 1], [1, 0], [2, 1], [1, 2], [0, 0], [3, 1]],
+                            dtype=torch.int32, device=dev)
+    sk = match_kernel.match_stats(bank, mask, pair_ids)
+    sp = match_kernel.match_stats_plain_batch(bank, mask, pair_ids, col_tile=128)
+    for a, b in zip(sk, sp):
+        assert torch.equal(a, b)
+    assert (sk[0][2] == match_kernel.NEG).all() and (sk[1][2] == 0).all()
+
+
 def test_match_kernel_rejects_bad_inputs(dev):
     bank = torch.zeros((2, 256, 128), dtype=torch.bfloat16, device=dev)
     mask = torch.ones((2, 256), dtype=torch.bool, device=dev)
@@ -86,6 +174,8 @@ def test_match_kernel_rejects_bad_inputs(dev):
         match_kernel.match_tile_partials(bank[:, :200], mask[:, :200], pairs)
     with pytest.raises(ValueError):
         match_kernel.match_tile_partials(bank, mask, pairs + 5)
+    with pytest.raises(ValueError):
+        match_kernel.match_tile_partials(bank[..., :64].contiguous(), mask, pairs)
 
 
 def _ring(split):

@@ -99,25 +99,51 @@ def test_batch_equals_per_pair_results():
 
 
 def test_merged_tile_partials_equal_plain_statistics():
-    """The kernel's epilogue: per-128-tile partials with first-index argmax,
-    merged by `_merge_partials`, give the whole-matrix statistics, ties
-    included."""
+    """The kernel's output: final row statistics, and per-128-row-block
+    column partials with first-index argmax merged by `_merge_partials`,
+    give the whole-matrix statistics, ties included."""
     rng = np.random.default_rng(7)
-    n, T = 512, match_kernel.TILE
+    n = 512
     da, db, ma, mb, _ = _planted_pair(rng, n=400, cap=n, noise=0.1)
     db[300:310] = db[200]          # exact duplicate columns: argmax ties
-    a, b, ma_t, mb_t = _t(da, db, ma, mb)
-    sims = a.to(torch.bfloat16).float() @ b.to(torch.bfloat16).float().T
-    sims = torch.where(ma_t[:, None] & mb_t[None, :], sims, match_kernel.NEG)
-    G = n // T
-    rows = [match_kernel._top2(sims[:, c * T:(c + 1) * T], 1) for c in range(G)]
-    cols = [match_kernel._top2(sims[r * T:(r + 1) * T], 0) for r in range(G)]
-    rt1, ri1, rt2 = (torch.stack(x)[None] for x in zip(*rows))
-    ct1, ci1, ct2 = (torch.stack(x)[None] for x in zip(*cols))
-    ri1 = ri1 + (torch.arange(G, dtype=torch.int32) * T)[None, :, None]
-    ci1 = ci1 + (torch.arange(G, dtype=torch.int32) * T)[None, :, None]
-    merged = (match_kernel._merge_partials(rt1, ri1, rt2)
-              + match_kernel._merge_partials(ct1, ci1, ct2))
-    plain = match_kernel.match_stats_plain(a, b, ma_t, mb_t, col_tile=128)
-    for m, p in zip(merged, plain):
-        assert torch.equal(m[0], p)
+    da[350:360] = da[100]          # exact duplicate rows: column ties
+    bank = torch.from_numpy(np.stack([da, db]))
+    mask = torch.from_numpy(np.stack([ma, mb]))
+    pairs = torch.tensor([[0, 1], [1, 0]], dtype=torch.int32)
+    cols = match_kernel.column_partials_plain(bank, mask, pairs)
+    merged = match_kernel._merge_partials(*cols)
+    plain = match_kernel.match_stats_plain_batch(bank, mask, pairs, col_tile=128)
+    for m, p in zip(merged, plain[3:]):
+        assert torch.equal(m, p)
+
+
+@pytest.mark.parametrize("cap", [128, 384])
+def test_column_partials_layout(cap):
+    """(P, N / 128, N) column partials: block g holds the top-2 of rows
+    128 g .. 128 g + 127 with global row indices; masked rows and columns
+    read NEG, a fully masked column gives the block's first row."""
+    rng = np.random.default_rng(cap)
+    bank = torch.from_numpy(rng.standard_normal((3, cap, 128)).astype(np.float32))
+    mask = torch.from_numpy(rng.random((3, cap)) < 0.8)
+    mask[2] = False
+    pairs = torch.tensor([[0, 1], [2, 0], [1, 2]], dtype=torch.int32)
+    t1, i1, t2 = match_kernel.column_partials_plain(bank, mask, pairs)
+    G = cap // match_kernel.TILE
+    assert t1.shape == i1.shape == t2.shape == (3, G, cap)
+    assert i1.dtype == torch.int32
+    for k, (ia, ib) in enumerate(pairs.tolist()):
+        a = bank[ia].to(torch.bfloat16).float()
+        b = bank[ib].to(torch.bfloat16).float()
+        sims = torch.where(mask[ia][:, None] & mask[ib][None, :], a @ b.T,
+                           match_kernel.NEG)
+        for g in range(G):
+            blk = sims[128 * g:128 * (g + 1)]
+            assert torch.equal(t1[k, g], blk.amax(0))
+            assert torch.equal(i1[k, g], blk.argmax(0).int() + 128 * g)
+            srt = blk.sort(0, descending=True).values
+            assert torch.equal(t2[k, g], srt[1])
+    assert (t1[1] == match_kernel.NEG).all() and (i1[1] == 128 * torch.arange(G)[:, None]).all()
+    merged = match_kernel._merge_partials(t1, i1, t2)
+    plain = match_kernel.match_stats_plain_batch(bank, mask, pairs, col_tile=128)
+    for m, p in zip(merged, plain[3:]):
+        assert torch.equal(m, p)
