@@ -3,9 +3,10 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from monocularsfm_torch/csrc, checks each against its
-plain PyTorch version on the card at the main path's shapes (the matcher
-over 16 pairs at capacity 8192, plus a case of exact ties and a fully
-masked image that must equal the plain statistics), times each beside its
+plain PyTorch version on the card at the main path's shapes (the fused
+blur also bit for bit against the two single passes; the matcher over 16
+pairs at capacity 8192, plus a case of exact ties and a fully masked
+image that must equal the plain statistics), times each beside its
 plain version, the bound of its work and one library call of the same
 function where there is one, checks the port's SIFT on the card
 against the same SIFT on the CPU, then drives the port's extract and match
@@ -114,6 +115,11 @@ def phase_build():
 
 
 def check_blur(dev):
+    """Each blur kernel against its plain version at the octave-0 shape,
+    both (C, T); the fused kernel also bit for bit against the single
+    passes; each timed beside its bound, its plain version and one library
+    call of the same function (F.conv2d on the replicate-padded input, TF32
+    off by the package's precision pins)."""
     import torch.nn.functional as F
 
     from monocularsfm_torch.ops import blur
@@ -128,37 +134,49 @@ def check_blur(dev):
         host = torch.as_tensor(taps_np)
         taps = host.to(dev)
         v_k, v_p = blur.blur_v(base, host), blur.blur_v_plain(base, taps)
-        h_k, h_p = blur.blur_h(v_p, taps), blur.blur_h_plain(v_p, taps)
-        full = (blur.blur_multi(base, host)
-                - blur.blur_multi_plain(base, taps)).abs().max().item()
-        err_v = (v_k - v_p).abs().max().item()
-        err_h = (h_k - h_p).abs().max().item()
-        if not (err_v <= BLUR_TOL and err_h <= BLUR_TOL and full <= BLUR_TOL):
-            fail(f"blur {name}: max abs err v {err_v} h {err_h} both {full} "
-                 f"> {BLUR_TOL}")
+        h_k, h_p = blur.blur_h(v_p, host), blur.blur_h_plain(v_p, taps)
+        vh_k, vh_p = blur.blur_vh(base, host), blur.blur_multi_plain(base, taps)
+        pair_equal = torch.equal(vh_k, blur.blur_h(v_k, host))
         C, T = taps.shape
         r = (T - 1) // 2
         pad_v = F.pad(base[:, None], (0, 0, r, r), mode="replicate")
         pad_h = F.pad(v_p, (r, r, 0, 0), mode="replicate")
+        pad_2d = F.pad(base[:, None], (r, r, r, r), mode="replicate")
         kv, kh = taps[:, None, :, None], taps[:, None, None, :]
+        k2d = (taps[:, :, None] * taps[:, None, :])[:, None]   # (C, 1, T, T)
+        err = dict(v=(v_k - v_p).abs().max().item(),
+                   h=(h_k - h_p).abs().max().item(),
+                   vh=(vh_k - vh_p).abs().max().item(),
+                   vh_library=(F.conv2d(pad_2d, k2d) - vh_p).abs().max().item())
+        del v_k, h_k, h_p, vh_k, vh_p
+        if not (max(err["v"], err["h"], err["vh"]) <= BLUR_TOL and pair_equal):
+            fail(f"blur {name}: max abs err {err} (tol {BLUR_TOL}), fused "
+                 f"equal to blur_h(blur_v(x)): {pair_equal}")
         t = dict(
             v=time_ms(lambda: blur.blur_v(base, host)),
             v_plain=time_ms(lambda: blur.blur_v_plain(base, taps)),
             v_library=time_ms(lambda: F.conv2d(pad_v, kv)),
-            h=time_ms(lambda: blur.blur_h(v_p, taps)),
+            h=time_ms(lambda: blur.blur_h(v_p, host)),
             h_plain=time_ms(lambda: blur.blur_h_plain(v_p, taps)),
             h_library=time_ms(lambda: F.conv2d(pad_h, kh, groups=C)),
+            vh=time_ms(lambda: blur.blur_vh(base, host)),
+            vh_plain=time_ms(lambda: blur.blur_multi_plain(base, taps)),
+            vh_library=time_ms(lambda: F.conv2d(pad_2d, k2d)),
+            pair=time_ms(lambda: blur.blur_h(blur.blur_v(base, host), host)),
         )
-        t["v_bound"], t["v_bound_by"] = roofline.bound(
-            *roofline.blur_v_work(*BLUR_SHAPE, C, T), "fp32")
-        t["h_bound"], t["h_bound_by"] = roofline.bound(
-            *roofline.blur_h_work(*BLUR_SHAPE, C, T), "fp32")
-        log(f"[blur] {name} at {BLUR_SHAPE}: err v {err_v:.3g} h {err_h:.3g} "
-            f"both {full:.3g} | v {t['v']:.4f} ms (bound {t['v_bound']:.4f}, "
-            f"plain {t['v_plain']:.3f}, conv2d {t['v_library']:.3f}) "
-            f"h {t['h']:.4f} ms (bound {t['h_bound']:.4f}, plain "
-            f"{t['h_plain']:.3f}, conv2d {t['h_library']:.3f})")
-        rows.append((name, err_v, err_h, t))
+        for k, work in (("v", roofline.blur_v_work), ("h", roofline.blur_h_work),
+                        ("vh", roofline.blur_multi_work)):
+            t[f"{k}_bound"], t[f"{k}_bound_by"] = roofline.bound(
+                *work(*BLUR_SHAPE, C, T), "fp32")
+        log(f"[blur] {name} at {BLUR_SHAPE}: err {err}, fused equal to the "
+            f"pair: {pair_equal}")
+        for k in ("v", "h", "vh"):
+            log(f"[blur]   {k} {t[k]:.4f} ms (bound {t[f'{k}_bound']:.4f} "
+                f"{t[f'{k}_bound_by']}, plain {t[f'{k}_plain']:.3f}, conv2d "
+                f"{t[f'{k}_library']:.3f})")
+        log(f"[blur]   the pair blur_h(blur_v(x)) {t['pair']:.4f} ms")
+        rows.append((name, err, pair_equal, t))
+        del v_p, pad_v, pad_h, pad_2d
     return rows
 
 
@@ -340,8 +358,8 @@ def phase_slice(dev):
     log(f"[slice] extract {n_img} images in {t_ext:.3f}s -> "
         f"{n_img / t_ext:.3f} images/s | match {n_pairs} pairs in "
         f"{t_match:.3f}s -> {n_pairs / t_match:.3f} pairs/s")
-    log(f"[slice] launches {launches}; expected blur passes "
-        f"{batches} batches x (1 + {octaves} octaves) = {per_pass} each")
+    log(f"[slice] launches {launches}; expected fused blur launches "
+        f"{batches} batches x (1 + {octaves} octaves) = {per_pass}")
     if n_img != SLICE_IMAGES or len(ids) != SLICE_IMAGES:
         fail(f"extracted {n_img} of {SLICE_IMAGES} images")
     for i in ids:
@@ -367,8 +385,10 @@ def phase_slice(dev):
                  f"3 px of the true homography")
     if counts != {p: len(m) for p, m in matches.items()}:
         fail("check-matches disagrees with the database")
-    if not (launches["blur_v"] == launches["blur_h"] == per_pass):
-        fail(f"blur launches {launches}, expected {per_pass} per pass")
+    if not (launches["blur_vh"] == per_pass
+            and launches["blur_v"] == launches["blur_h"] == 0):
+        fail(f"blur launches {launches}, expected blur_vh {per_pass} times "
+             f"and no single pass")
     if launches["match_tile"] < 1:
         fail("the matcher kernel was not launched by the match stage")
     adj = [len(matches[(a, b)]) for a, b in zip(ids[:-1], ids[1:])]
@@ -578,8 +598,7 @@ def phase_reconstruct(dev, views):
         fail(f"exports disagree with the map: COLMAP {len(model['images'])} "
              f"images / {len(model['points'])} points, PLY {len(ply_xyz)}, "
              f"mvs {mvs}")
-    if not (launches["blur_v"] > 0 and launches["blur_h"] > 0
-            and launches["match_tile"] > 0):
+    if not (launches["blur_vh"] > 0 and launches["match_tile"] > 0):
         fail(f"pipeline kernel launches {launches}")
     return launches, {
         "pipeline_views": views,
@@ -616,8 +635,8 @@ def main():
     launches, quality = walled("pipeline", phase_reconstruct, dev, MP_VIEWS)
     rates.update(quality, phase_wall_s=walls)
 
-    _, err_v, err_h, t = blur_rows[1]  # the octave stack dominates
-    base_t = blur_rows[0][3]
+    _, err, pair_equal, t = blur_rows[1]  # the octave stack dominates
+    _, base_err, base_equal, base_t = blur_rows[0]
 
     def entry(name, source, line, err, ms, plain, bound, by, library, **extra):
         return {"name": name, "route": "cuda",
@@ -629,15 +648,22 @@ def main():
                 "bound_ms": bound, "bound_by": by,
                 "bound_share": bound / ms, "library_ms": library, **extra}
 
+    def blur_entry(k, name, line, **extra):
+        base_keys = (k, f"{k}_plain", f"{k}_bound", f"{k}_library")
+        return entry(name, "blur.cu", line, err[k], t[k], t[f"{k}_plain"],
+                     t[f"{k}_bound"], t[f"{k}_bound_by"], t[f"{k}_library"],
+                     base_c1_t9={**{key: base_t[key] for key in base_keys},
+                                 "max_abs_err": base_err[k]}, **extra)
+
     kernels = [
-        entry("blur_v", "blur.cu", "pallas_blur.py:42", err_v, t["v"],
-              t["v_plain"], t["v_bound"], t["v_bound_by"], t["v_library"],
-              base_c1_t9={k: base_t[k] for k in ("v", "v_plain", "v_bound",
-                                                 "v_library")}),
-        entry("blur_h", "blur.cu", "pallas_blur.py:59", err_h, t["h"],
-              t["h_plain"], t["h_bound"], t["h_bound_by"], t["h_library"],
-              base_c1_t9={k: base_t[k] for k in ("h", "h_plain", "h_bound",
-                                                 "h_library")}),
+        blur_entry("v", "blur_v", "pallas_blur.py:42"),
+        blur_entry("h", "blur_h", "pallas_blur.py:59"),
+        blur_entry("vh", "blur_vh", "pallas_blur.py:59",
+                   fuses="monocularsfm_tpu/ops/pallas_blur.py:42",
+                   equal_to_pair={"C=5 T=31": pair_equal, "C=1 T=9": base_equal},
+                   pair_ms={"C=5 T=31": t["pair"], "C=1 T=9": base_t["pair"]},
+                   library_is="F.conv2d, (C, 1, T, T) outer-product weights",
+                   library_max_abs_err=err["vh_library"]),
         entry("match_tile", "match_tile.cu", "pallas_matching.py:39", sim_err,
               tm["kernel"], tm["plain"], tm["bound"], tm["bound_by"],
               tm["library"], index_agreement=agree,

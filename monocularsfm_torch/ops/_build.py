@@ -35,6 +35,7 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "sfm_blur_v": ([_P, _P, _P, _I, _I, _I, _I, _I, _P], _I),
     "sfm_blur_h": ([_P, _P, _P, _I, _I, _I, _I, _I, _P], _I),
+    "sfm_blur_vh": ([_P, _P, _P, ctypes.c_longlong, _I, _I, _I, _I, _I, _P], _I),
     "sfm_match_tile": ([_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                         _P], _I),
     "sfm_error_string": ([_I], ctypes.c_char_p),

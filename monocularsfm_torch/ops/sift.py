@@ -24,7 +24,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from monocularsfm_torch.ops.blur import blur_multi
+from monocularsfm_torch.ops.blur import blur_multi, blur_vh
 
 # OpenCV-compatible constants.
 N_SCALES = 3              # nOctaveLayers
@@ -122,9 +122,15 @@ def _upsample2x(imgs: torch.Tensor) -> torch.Tensor:
 
 def _build_octave_batched(base_b: torch.Tensor) -> torch.Tensor:
     """(B, H, W) octave bases -> (B, S+3, H, W) gaussian stacks, every scale
-    blurred directly from the base with its composed sigma."""
-    taps = torch.as_tensor(_OCT_KER)  # on the host: blur_v reads them there
-    return torch.cat([base_b[:, None], blur_multi(base_b, taps)], dim=1)
+    blurred directly from the base with its composed sigma.  The base is
+    copied into channel 0 and the fused blur writes channels 1.. in place."""
+    B, H, W = base_b.shape
+    stack = torch.empty((B, len(_OCT_KER) + 1, H, W), dtype=torch.float32,
+                        device=base_b.device)
+    stack[:, 0] = base_b
+    taps = torch.as_tensor(_OCT_KER)  # on the host: the kernel reads them there
+    blur_vh(base_b, taps, out=stack[:, 1:])
+    return stack
 
 
 def _detect_octave(gauss: torch.Tensor, K: int,

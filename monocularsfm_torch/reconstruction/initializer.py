@@ -66,10 +66,12 @@ def _host(x) -> np.ndarray:
 
 class Initializer:
     def __init__(self, K: np.ndarray, config: InitializerConfig | None = None,
-                 device="cpu"):
+                 device="cuda"):
         self.K = np.asarray(K, np.float64)
         self.cfg = config or InitializerConfig()
-        self.device = torch.device(device)
+        from monocularsfm_torch.reconstruction.map_builder import resolve_device
+
+        self.device = resolve_device(device)
         self._gen = torch.Generator(self.device).manual_seed(42)
 
     def _draw(self, num_hyps: int, cap: int) -> torch.Tensor:

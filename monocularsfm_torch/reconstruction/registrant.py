@@ -41,14 +41,16 @@ def _pad_cap(n: int, minimum: int = 512) -> int:
 
 class Registrant:
     def __init__(self, K: np.ndarray, config: RegistrantConfig | None = None,
-                 device="cpu"):
+                 device="cuda"):
         self.K = np.asarray(K, np.float64)
         self.cfg = config or RegistrantConfig()
         if self.cfg.pnp_method not in SAMPLE_SIZE:
             raise NotImplementedError(
                 f"pnp_method {self.cfg.pnp_method!r} is not ported; the port "
                 f"has {sorted(SAMPLE_SIZE)}")
-        self.device = torch.device(device)
+        from monocularsfm_torch.reconstruction.map_builder import resolve_device
+
+        self.device = resolve_device(device)
         self._gen = torch.Generator(self.device).manual_seed(7)
 
     def _draw(self, num_hyps: int, cap: int) -> torch.Tensor:

@@ -55,12 +55,14 @@ def _triangulate_batch(K4, R, t, uv, valid, max_error_px, min_angle_deg):
 
 class Triangulator:
     def __init__(self, K: np.ndarray, config: TriangulatorConfig | None = None,
-                 track_width: int = 16, batch_cap: int = 4096, device="cpu"):
+                 track_width: int = 16, batch_cap: int = 4096, device="cuda"):
         self.K = np.asarray(K, np.float64)
         self.cfg = config or TriangulatorConfig()
         self.T = track_width
         self.batch_cap = batch_cap
-        self.device = torch.device(device)
+        from monocularsfm_torch.reconstruction.map_builder import resolve_device
+
+        self.device = resolve_device(device)
 
     def triangulate_tracks(self, tracks, poses):
         """`tracks` is a list of lists of (image_id, uv); `poses` maps

@@ -34,6 +34,13 @@ def blur_h_work(B: int, H: int, W: int, C: int, T: int) -> tuple[float, float]:
     return 8.0 * px + 4.0 * C * T, 2.0 * px * T
 
 
+def blur_multi_work(B: int, H: int, W: int, C: int, T: int) -> tuple[float, float]:
+    """Bytes and fp32 flops of the fused pass (B, H, W) -> (B, C, H, W): both
+    axes' taps, the base read once and the result written once."""
+    px = B * H * W
+    return 4.0 * px * (1 + C) + 4.0 * C * T, 2.0 * px * C * 2 * T
+
+
 def match_work(valid, pairs, N: int, D: int = 128) -> tuple[float, float]:
     """Bytes and bf16 flops of the six statistics of a batch of pairs.
 

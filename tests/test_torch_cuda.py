@@ -35,22 +35,29 @@ def test_blur_kernels_match_plain(dev, which, shape):
     blur.reset_launches()
     out = blur.blur_multi(base, taps)
     torch.cuda.synchronize()
-    assert blur.LAUNCHES == {"blur_v": 1, "blur_h": 1}
+    assert blur.LAUNCHES == {"blur_v": 0, "blur_h": 0, "blur_vh": 1}
     assert (out - blur.blur_multi_plain(base, taps)).abs().max().item() <= 1e-5
 
 
-@pytest.mark.parametrize("taps_kind", ["base", "octave", "generic3x7", "generic1x11"])
+def _taps_of(kind, rng):
+    return {
+        "base": gaussian_kernel1d(math.sqrt(SIGMA0 ** 2 - 4 * INIT_SIGMA ** 2))[None],
+        "octave": _OCT_KER,
+        "generic3x7": rng.random((3, 7)).astype(np.float32),
+        "generic1x11": gaussian_kernel1d(1.52)[None],
+    }[kind]
+
+
+TAPS_KINDS = ["base", "octave", "generic3x7", "generic1x11"]
+
+
+@pytest.mark.parametrize("taps_kind", TAPS_KINDS)
 @pytest.mark.parametrize("shape", [(2, 20, 36), (1, 50, 10), (3, 200, 260)])
 def test_blur_v_instantiations_match_plain(dev, taps_kind, shape):
     """Both compiled-in (C, T), the runtime instantiation, W % 4 == 0 and
     ragged widths, H < T."""
     rng = np.random.default_rng(len(taps_kind) + shape[1])
-    taps = {
-        "base": gaussian_kernel1d(math.sqrt(SIGMA0 ** 2 - 4 * INIT_SIGMA ** 2))[None],
-        "octave": _OCT_KER,
-        "generic3x7": rng.random((3, 7)).astype(np.float32),
-        "generic1x11": gaussian_kernel1d(1.52)[None],
-    }[taps_kind]
+    taps = _taps_of(taps_kind, rng)
     base = torch.from_numpy(rng.random(shape, dtype=np.float32)).to(dev)
     for t in (torch.as_tensor(taps), torch.as_tensor(taps, device=dev)):
         blur.reset_launches()
@@ -61,12 +68,67 @@ def test_blur_v_instantiations_match_plain(dev, taps_kind, shape):
         assert (out - blur.blur_v_plain(base, t)).abs().max().item() <= 1e-5
 
 
+def _unaligned(shape, dev, rng):
+    """A contiguous tensor whose data starts 4 bytes past a 16-byte line."""
+    n = int(np.prod(shape))
+    buf = torch.from_numpy(rng.random(n + 1, dtype=np.float32)).to(dev)
+    x = buf[1:].view(shape)
+    assert x.is_contiguous() and x.data_ptr() % 16 != 0
+    return x
+
+
+@pytest.mark.parametrize("taps_kind", TAPS_KINDS)
+@pytest.mark.parametrize("shape", [(1, 7, 5), (4, 30, 40), (2, 130, 333),
+                                   (3, 200, 260), (2, 1000, 1003)])
+@pytest.mark.parametrize("aligned", [True, False])
+def test_blur_vh_and_blur_h_match_plain_and_the_pair(dev, taps_kind, shape,
+                                                    aligned):
+    """The fused kernel within 1e-5 of plain and equal bit for bit to the two
+    single passes; the single horizontal pass within 1e-5 of plain.  Both
+    compiled-in (C, T) and the runtime instantiation; images smaller than a
+    tile and than the halo, ragged widths, 16-byte aligned or not, and more
+    tiles than the fused kernel's persistent blocks."""
+    rng = np.random.default_rng(len(taps_kind) + shape[1] + aligned)
+    taps = torch.as_tensor(_taps_of(taps_kind, rng))
+    base = (torch.from_numpy(rng.random(shape, dtype=np.float32)).to(dev)
+            if aligned else _unaligned(shape, dev, rng))
+    blur.reset_launches()
+    fused = blur.blur_vh(base, taps)
+    torch.cuda.synchronize()
+    assert blur.LAUNCHES == {"blur_v": 0, "blur_h": 0, "blur_vh": 1}
+    assert fused.shape == (shape[0], taps.shape[0], *shape[1:])
+    assert (fused - blur.blur_multi_plain(base, taps)).abs().max().item() <= 1e-5
+    v = blur.blur_v(base, taps)
+    assert torch.equal(fused, blur.blur_h(v, taps))
+    if not aligned:
+        v = _unaligned(v.shape, dev, rng).copy_(v)
+    assert (blur.blur_h(v, taps) - blur.blur_h_plain(v, taps)).abs().max().item() <= 1e-5
+
+
+@pytest.mark.parametrize("shape", [(2, 30, 40), (1, 61, 77), (2, 130, 256)])
+def test_blur_vh_writes_into_a_stack(dev, shape):
+    """Channels 1..C of a (B, C + 1, H, W) stack, written at its batch
+    stride, equal a plain (B, C, H, W) launch; channel 0 stays."""
+    rng = np.random.default_rng(shape[2])
+    base = torch.from_numpy(rng.random(shape, dtype=np.float32)).to(dev)
+    taps = torch.as_tensor(_OCT_KER)
+    stack = torch.full((shape[0], 6, *shape[1:]), 7.0, device=dev)
+    blur.blur_vh(base, taps, out=stack[:, 1:])
+    assert torch.equal(stack[:, 1:], blur.blur_vh(base, taps))
+    assert (stack[:, 0] == 7.0).all()
+
+
 def test_blur_rejects_what_the_kernel_does_not_take(dev):
     taps = torch.as_tensor(_OCT_KER, device=dev)
     with pytest.raises(ValueError):
         blur.blur_v(torch.zeros((1, 8, 8), dtype=torch.float64, device=dev), taps)
     with pytest.raises(ValueError):
         blur.blur_h(torch.zeros((1, 3, 8, 8), device=dev), taps)  # 5 tap rows
+    with pytest.raises(ValueError):
+        blur.blur_vh(torch.zeros((1, 8, 8), device=dev), taps,
+                     out=torch.zeros((1, 5, 8, 8)))              # out on the host
+    with pytest.raises(RuntimeError):                            # C > 8
+        blur.blur_vh(torch.zeros((1, 8, 8), device=dev), torch.ones((9, 3)))
 
 
 @pytest.mark.parametrize("cap", [128, 1024])

@@ -240,3 +240,19 @@ def test_triangulator_matches_reference():
     assert 0.5 < at.mean() < 1.0
     np.testing.assert_allclose(Xt[at], Xj[aj], rtol=1e-4, atol=1e-4)
     np.testing.assert_allclose(et, ej, rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.parametrize("module,name", [("initializer", "Initializer"),
+                                         ("registrant", "Registrant"),
+                                         ("triangulator", "Triangulator")])
+def test_engines_default_to_the_card(module, name, monkeypatch):
+    """Like every entry point of the port, an engine runs on the card unless
+    the caller asks for the CPU, and raises where there is no card."""
+    import importlib
+
+    cls = getattr(importlib.import_module(
+        f"monocularsfm_torch.reconstruction.{module}"), name)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="is_available"):
+        cls(np.eye(3))
+    assert cls(np.eye(3), device="cpu").device == torch.device("cpu")

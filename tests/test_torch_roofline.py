@@ -31,3 +31,14 @@ def test_blur_h_moves_twice_the_stack():
     assert nbytes == 8 * px + 4 * 5 * 31 and flops == 2 * px * 31
     ms, by = roofline.bound(nbytes, flops, "fp32")
     assert by == "bytes" and ms == pytest.approx(0.2348, rel=1e-3)
+
+
+@pytest.mark.parametrize("C,T,bound_ms,by", [(5, 31, 0.18194, "operations"),
+                                             (1, 9, 0.04695, "bytes")])
+def test_fused_blur_bound(C, T, bound_ms, by):
+    """One read of the base, one write of the stack, 2 C T FMAs a pixel."""
+    nbytes, flops = roofline.blur_multi_work(4, 1920, 2560, C, T)
+    px = 4 * 1920 * 2560
+    assert nbytes == 4 * px * (1 + C) + 4 * C * T and flops == 2 * px * C * 2 * T
+    ms, got = roofline.bound(nbytes, flops, "fp32")
+    assert got == by and ms == pytest.approx(bound_ms, rel=1e-4)
