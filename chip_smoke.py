@@ -14,10 +14,13 @@ stages (`sfm-torch extract`, `match`, `check-matches`) on 8 rendered
 1280x960 images at the default configuration.  Then bundle adjustment on
 the card: the dense Schur solver on a 128-camera / 40k-point ring (against
 the same solve on the CPU) and the PCG solver on a 1024-camera /
-200k-point ring with split tracks.  Last, `sfm-torch pipeline` (extract,
-match, reconstruct, export) on 32 rendered 1280x960 views of a
-multi-plane scene, checked against the true poses.  It stops at the first
-failure with a non-zero exit.  The last three lines of standard output are
+200k-point ring with split tracks.  Then `sfm-torch pipeline` (extract,
+match, reconstruct, export) on 24 rendered 1280x960 views of a
+multi-plane scene, checked against the true poses.  Then a second
+pipeline on 16 of those views as a camera with lens distortion records
+them, with vocabulary retrieval, P3P registration, the event log, profiler
+traces and the undistorted-image export; last the PnP solvers (p3p, ap3p,
+p6p, upnp) on the card against the CPU with the same draws.  It stops at the first failure with a non-zero exit.  The last three lines of standard output are
 the card's name and power limit (nvidia-smi), one JSON object describing
 the kernels and the measured rates, and {"ok": true, "device": {...}}.
 Logs go to stderr.
@@ -57,10 +60,29 @@ CUDA_CPU_RTOL = 1e-4            # cost after 1..3 LM iterations, card vs CPU
 FIXED_WORK = dict(function_tolerance=0.0, parameter_tolerance=0.0,
                   gradient_tolerance=0.0, pcg_rtol=0.0)
 PCG_DENSE_TOL = 2e-3            # px of rmse_final, PCG vs dense, 128 cameras
-# Pipeline: tools/scale_run.py's recipe at 32 views (mp128 camera spacing).
-MP_VIEWS, MP_W, MP_H, MP_SEED = 32, 1280, 960, 7
+# Pipeline: tools/scale_run.py's recipe at 24 views (mp128 camera spacing;
+# 32 until the smoke gained its PnP and alternate-pipeline phases).
+MP_VIEWS, MP_W, MP_H, MP_SEED = 24, 1280, 960, 7
 MP_ARC_PER_VIEW = 200.0 / 128
 MP_REPROJ_MAX, MP_CENTER_PCT_MAX, MP_MIN_POINTS = 0.5, 0.1, 5000
+# PnP: every minimal solver on one ring view, card against CPU with the same
+# draws, at RegistrantConfig's 4096 hypotheses and the capacity of an 8024-
+# feature image (8192).  UPnP is given a K whose focal is 8% off.
+PNP_METHODS = ("p3p", "ap3p", "p6p", "upnp")
+PNP_HYPS, PNP_CAP, PNP_POINTS, PNP_OUTLIERS = 4096, 8192, 11_000, 0.3
+PNP_AGREE, PNP_POSE_TOL = 0.999, 1e-3
+# UPnP does not refine the focal: the winner is the hypothesis with the
+# most inliers and the least truncated error, and at the same inlier count
+# hypotheses whose focal differs by about 1% (their depth compensating)
+# score within f32 rounding of each other.  So the card and the CPU may
+# keep different ones: held to the same inliers (1%, masks 99%), the
+# rotation, and each device's focal within 2% of the truth.
+UPNP_FOCAL_SCALE, UPNP_FOCAL, UPNP_COUNT, UPNP_AGREE = 1.08, 0.02, 0.01, 0.99
+# The alternate pipeline: 16 distorted views of the mp scene, vocabulary
+# retrieval, P3P registration, the event log and the profiler traces.
+ALT_VIEWS, ALT_MIN_REG, ALT_NEIGHBORS = 16, 15, 6
+ALT_DIST = [-0.08, 0.012, 4e-4, -6e-4]   # tests/test_distortion_pipeline.py
+ALT_GREY_MAX, ALT_MARGIN = 3.0, 48       # mean |undistorted - pinhole|, interior
 
 
 def log(*a):
@@ -600,7 +622,7 @@ def phase_reconstruct(dev, views):
              f"mvs {mvs}")
     if not (launches["blur_vh"] > 0 and launches["match_tile"] > 0):
         fail(f"pipeline kernel launches {launches}")
-    return launches, {
+    return (imgs, K, R_gt, t_gt), launches, {
         "pipeline_views": views,
         "pipeline_registered": st.num_registered_images,
         "pipeline_points": st.num_points3D,
@@ -608,6 +630,285 @@ def phase_reconstruct(dev, views):
         "pipeline_center_rms_pct_of_scene": center_pct,
         "pipeline_stage_s": stages,
         "pipeline_mapbuilder_s": timers,
+    }
+
+
+def pnp_inputs(dev):
+    """Camera 2 of a three-camera ring, 0.5 px noise, 30% outliers, padded to
+    PNP_CAP; the draws of one registration round, made on the host so the
+    card and the CPU get the same ones."""
+    from monocularsfm_torch.utils.synthetic import camera_ring_scene
+
+    scene = camera_ring_scene(num_cameras=3, num_points=PNP_POINTS, noise_px=0.5,
+                              seed=SEED)
+    rng = np.random.default_rng(SEED)
+    vis = np.nonzero(scene.visible[2])[0][:PNP_CAP]
+    uv = scene.observations[2][vis].copy()
+    bad = rng.random(len(uv)) < PNP_OUTLIERS
+    uv[bad] = rng.uniform(0, [scene.width, scene.height], (bad.sum(), 2))
+    X = np.zeros((PNP_CAP, 3), np.float32)
+    U = np.zeros((PNP_CAP, 2), np.float32)
+    m = np.zeros(PNP_CAP, bool)
+    X[:len(vis)], U[:len(vis)], m[:len(vis)] = scene.points[vis], uv, True
+    u = torch.rand((PNP_HYPS, PNP_CAP), generator=torch.Generator().manual_seed(SEED))
+    host = [torch.from_numpy(a) for a in (X, U, m)]
+    return scene, u, host, [a.to(dev) for a in host]
+
+
+def phase_pnp(dev):
+    """estimate_pnp_ransac with p3p, ap3p, p6p and upnp on the card and on
+    the CPU with the same draws: the same winner after the polish (inlier
+    count, masks, pose; UPnP: see UPNP_*), p3p equal to ap3p bit for bit on
+    the card, and each method's hypotheses/s on the card (one registration
+    round, polish included)."""
+    from monocularsfm_torch.estimators.pnp import estimate_pnp_ransac
+
+    scene, u, host, card = pnp_inputs(dev)
+    u_dev = u.to(dev)
+    n_valid = int(host[2].sum())
+    out, rates = {}, {}
+    for method in PNP_METHODS:
+        K = scene.K.astype(np.float32)
+        if method == "upnp":
+            K[[0, 1], [0, 1]] *= UPNP_FOCAL_SCALE
+        K = torch.from_numpy(K)
+        K_dev = K.to(dev)
+        t0 = time.perf_counter()
+        c = estimate_pnp_ransac(u, K, *host, method=method)
+        t_cpu = time.perf_counter() - t0
+        g = estimate_pnp_ransac(u_dev, K_dev, *card, method=method)
+        ms = time_ms(lambda: estimate_pnp_ransac(u_dev, K_dev, *card, method=method), 3)
+        g = {k: v.cpu() for k, v in g.items()}
+        n_c, n_g = int(c["num_inliers"]), int(g["num_inliers"])
+        agree = (c["inliers"] == g["inliers"]).float().mean().item()
+        dR = (c["R"] - g["R"]).abs().max().item()
+        dt = (c["t"] - g["t"]).abs().max().item()
+        f_c, f_g = float(c["focal"]), float(g["focal"])
+        truth = float(np.abs(g["R"].double().numpy() - scene.R[2]).max())
+        rates[method] = {
+            "hypotheses_per_s": PNP_HYPS / (ms / 1e3), "ms": ms, "cpu_s": t_cpu,
+            "inliers_cuda": n_g, "inliers_cpu": n_c, "mask_agreement": agree,
+            "R_diff": dR, "t_diff": dt, "focal_cuda": f_g, "focal_cpu": f_c,
+            "R_err_vs_truth": truth}
+        log(f"[pnp] {method}: {PNP_HYPS} hypotheses x {PNP_CAP} capacity "
+            f"({n_valid} valid) in {ms:.3f} ms -> {PNP_HYPS / (ms / 1e3):.0f} "
+            f"hypotheses/s (cpu {t_cpu:.2f}s) | inliers cuda {n_g} cpu {n_c}, "
+            f"mask agreement {agree:.6f}, |dR| {dR:.2e}, |dt| {dt:.2e}, focal "
+            f"cuda {f_g:.3f} cpu {f_c:.3f} (true {scene.K[0, 0]}), R vs truth "
+            f"{truth:.2e}")
+        if method == "upnp":
+            ok = (abs(n_g - n_c) <= UPNP_COUNT * n_c and agree >= UPNP_AGREE
+                  and dR <= PNP_POSE_TOL
+                  and max(abs(f / scene.K[0, 0] - 1.0) for f in (f_c, f_g)) <= UPNP_FOCAL)
+        else:
+            ok = (n_g == n_c and agree >= PNP_AGREE and max(dR, dt) <= PNP_POSE_TOL
+                  and f_g == f_c)
+        if not (ok and n_g >= 0.5 * n_valid and truth < 0.01):
+            fail(f"pnp {method}: card vs cpu {rates[method]}")
+        out[method] = g
+    same = all(torch.equal(out["p3p"][k], out["ap3p"][k]) for k in ("R", "t", "inliers"))
+    log(f"[pnp] p3p equal to ap3p bit for bit on the card: {same}")
+    if not same:
+        fail("p3p and ap3p differ on the card")
+    return rates
+
+
+def distorted_renders(imgs, K, dev):
+    """Each pinhole render sampled at the undistorted position of every
+    pixel of a camera with ALT_DIST (bicubic, on the card): the views that
+    camera would record."""
+    import torch.nn.functional as F
+
+    from monocularsfm_torch.ops.undistort import undistort_pixels
+
+    n, H, W = imgs.shape
+    v, u = torch.meshgrid(torch.arange(H, dtype=torch.float32, device=dev),
+                          torch.arange(W, dtype=torch.float32, device=dev),
+                          indexing="ij")
+    und = undistort_pixels(torch.stack([u, v], -1), K, ALT_DIST)
+    grid = torch.stack([2 * und[..., 0] / (W - 1) - 1, 2 * und[..., 1] / (H - 1) - 1], -1)
+    out = F.grid_sample(torch.from_numpy(imgs).to(dev).float()[:, None],
+                        grid[None].expand(n, H, W, 2), mode="bicubic",
+                        padding_mode="border", align_corners=True)
+    return torch.clamp(torch.round(out[:, 0]), 0, 255).to(torch.uint8).cpu().numpy()
+
+
+def _trace_kernels(path):
+    """Names of the device kernels in a Chrome trace of torch.profiler."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    return {e.get("name", "") for e in events if e.get("cat") == "kernel"}
+
+
+def alt_config(dimgs, K, root, profile_dir=""):
+    """Write the distorted views as PNGs under `root` and the alternate
+    pipeline's config: the main pipeline's, plus ALT_DIST, vocabulary
+    retrieval with ALT_NEIGHBORS partners, P3P registration."""
+    from monocularsfm_torch.config import SfMConfig
+    from monocularsfm_torch.utils.png import write_png
+
+    images = os.path.join(root, "images")
+    os.makedirs(images)
+    for i, im in enumerate(dimgs):
+        write_png(f"{images}/frame{i:04d}.png", im)
+    cfg = SfMConfig(images_path=images, database_path=f"{root}/alt.db",
+                    output_path=f"{root}/out")
+    cfg.camera.fx, cfg.camera.fy = float(K[0, 0]), float(K[1, 1])
+    cfg.camera.cx, cfg.camera.cy = float(K[0, 2]), float(K[1, 2])
+    cfg.camera.k1, cfg.camera.k2, cfg.camera.p1, cfg.camera.p2 = ALT_DIST
+    cfg.extraction.num_features = 8024
+    cfg.matching.match_type = "vocab"
+    cfg.matching.vocab_num_neighbors = ALT_NEIGHBORS
+    cfg.registrant.pnp_method = "p3p"
+    cfg.map_builder.profile_dir = profile_dir
+    return cfg
+
+
+def _stage(stages, name, fn, *a, **kw):
+    torch.cuda.synchronize()
+    a0 = time.perf_counter()
+    res = fn(*a, **kw)
+    torch.cuda.synchronize()
+    stages[name] = time.perf_counter() - a0
+    log(f"[pipeline_alt] {name}: {stages[name]:.2f}s")
+    return res
+
+
+def profiled_alt_run(dimgs, K, dev):
+    """The alternate config on the first half of the views with the
+    profilers on: extract + match under torch.profiler (by this script) and
+    the build's `profile_dir`.  Returns (kernel names in each trace, stage
+    walls, registered)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from monocularsfm_torch import cli
+
+    quiet = lambda *a: None  # noqa: E731
+    stages = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        prof_dir = os.path.join(tmp, "profile")
+        cfg = alt_config(dimgs, K, tmp, profile_dir=prof_dir)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            _stage(stages, "profiled extract", cli.cmd_extract, cfg, device=dev, log=quiet)
+            _stage(stages, "profiled match", cli.cmd_match, cfg, device=dev, log=quiet)
+        t0 = time.perf_counter()
+        os.makedirs(prof_dir)
+        prof.export_chrome_trace(os.path.join(prof_dir, "stages_trace.json"))
+        stages["stage trace export"] = time.perf_counter() - t0
+        builder = _stage(stages, "profiled reconstruct", cli.cmd_reconstruct, cfg,
+                         device=dev, log=quiet)
+        kernels = {name: _trace_kernels(os.path.join(prof_dir, f"{name}_trace.json"))
+                   for name in ("stages", "mapbuilder")}
+    return kernels, stages, builder.map.statistics().num_registered_images
+
+
+def phase_pipeline_alt(dev, renders):
+    """`sfm-torch` extract, match, reconstruct and export of the first
+    ALT_VIEWS of the main pipeline's renders (`renders`: images, K, R, t),
+    recorded by a camera with ALT_DIST, with vocabulary retrieval, P3P
+    registration and the event log; then the same on half the views with
+    the profilers on (profiling the 16-view build took the phase past
+    90 s)."""
+    from monocularsfm_torch import cli
+    from monocularsfm_torch.database import Database
+    from monocularsfm_torch.ops import blur, match_kernel
+    from monocularsfm_torch.utils.png import read_png
+    from monocularsfm_torch.utils.synthetic import similarity_align
+
+    t0 = time.perf_counter()
+    imgs, K, R_gt, t_gt = renders
+    imgs, R_gt, t_gt = imgs[:ALT_VIEWS], R_gt[:ALT_VIEWS], t_gt[:ALT_VIEWS]
+    dimgs = distorted_renders(imgs, K, dev)
+    log(f"[pipeline_alt] distorted {ALT_VIEWS} views {MP_W}x{MP_H} in "
+        f"{time.perf_counter() - t0:.1f}s")
+    quiet = lambda *a: None  # noqa: E731
+    stages = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = alt_config(dimgs, K, tmp)
+        metrics = os.path.join(tmp, "events.jsonl")
+        blur.reset_launches()
+        match_kernel.reset_launches()
+        _stage(stages, "extract", cli.cmd_extract, cfg, device=dev, log=quiet)
+        _stage(stages, "match", cli.cmd_match, cfg, device=dev, log=log)
+        builder = _stage(stages, "reconstruct", cli.cmd_reconstruct, cfg, device=dev,
+                         log=quiet, metrics_path=metrics)
+        launches = dict(blur.LAUNCHES, **match_kernel.LAUNCHES)
+        db = Database(cfg.database_path)
+        try:
+            retrieved = len(db.read_all_matches())
+        finally:
+            db.close()
+        st = builder.map.statistics()
+        und_dir = os.path.join(tmp, "out", "undistorted_images")
+        und_names = sorted(os.listdir(und_dir))
+        m = ALT_MARGIN
+        grey = [float(np.abs(read_png(os.path.join(und_dir, f"frame{v:04d}.png"))[..., 0].astype(int)
+                             - imgs[v].astype(int))[m:-m, m:-m].mean())
+                for v in range(ALT_VIEWS)]
+        with open(metrics) as f:
+            events = [json.loads(line) for line in f]
+        ids = {builder.map.images[i].name: i for i in builder.map.registered_ids}
+        src, dst = [], []
+        for v in range(ALT_VIEWS):
+            i = ids.get(f"frame{v:04d}.png")
+            if i is not None:
+                im = builder.map.images[i]
+                src.append(-im.R.T @ im.t)
+                dst.append(-R_gt[v].T @ t_gt[v])
+    half = ALT_VIEWS // 2
+    kernels, prof_stages, prof_reg = profiled_alt_run(dimgs[:half], K, dev)
+    stages.update(prof_stages)
+    _, rms = similarity_align(np.asarray(src), np.asarray(dst))
+    center_pct = 100.0 * rms / float(np.linalg.norm(np.ptp(np.asarray(dst), axis=0)))
+    timers = {k: builder.timers[k].elapsed for k in (
+        "initialize", "register", "triangulate", "local_ba", "global_ba",
+        "filter", "total")}
+    n_reg = st.num_registered_images
+    n_register = sum(e["event"] == "register" for e in events)
+    n_gba = sum(e["event"] == "global_ba" for e in events)
+    named = sorted(n for n in kernels["stages"] if "blur_vh" in n or "match_tile" in n)
+    exhaustive = ALT_VIEWS * (ALT_VIEWS - 1) // 2
+    log(f"[pipeline_alt] {n_reg}/{ALT_VIEWS} registered, {st.num_points3D} points, "
+        f"mean reproj {st.mean_reprojection_error:.5f} px, camera-centre RMS "
+        f"{center_pct:.5f}% of the scene diagonal, retrieval kept {retrieved} "
+        f"of {exhaustive} pairs")
+    log("[pipeline_alt] MapBuilder timers (s): "
+        + ", ".join(f"{k} {v:.2f}" for k, v in timers.items()))
+    log(f"[pipeline_alt] launches {launches}; events: {n_register} register, "
+        f"{n_gba} global_ba; undistorted images {len(und_names)}, interior "
+        f"mean |undistorted - pinhole| max {max(grey):.3f} grey levels")
+    log(f"[pipeline_alt] profiled {half}-view run: {prof_reg}/{half} registered; "
+        f"kernels named in the extract + match trace: {named}; the build's "
+        f"trace: {len(kernels['mapbuilder'])} distinct kernels")
+    if n_reg < ALT_MIN_REG or prof_reg < half - 1:
+        fail(f"alt pipeline registered {n_reg} of {ALT_VIEWS} views, the "
+             f"profiled run {prof_reg} of {half}")
+    if not st.mean_reprojection_error < MP_REPROJ_MAX:
+        fail(f"alt pipeline mean reprojection error {st.mean_reprojection_error} px")
+    if not center_pct < MP_CENTER_PCT_MAX:
+        fail(f"alt pipeline camera-centre RMS {center_pct}% of the scene diagonal")
+    if not (launches["match_tile"] > 0 and launches["blur_vh"] > 0):
+        fail(f"alt pipeline kernel launches {launches}")
+    if not retrieved < exhaustive:
+        fail(f"retrieval kept {retrieved} pairs, exhaustive matching {exhaustive}")
+    if len(und_names) != ALT_VIEWS or max(grey) >= ALT_GREY_MAX:
+        fail(f"undistorted_images: {len(und_names)} files, interior grey "
+             f"differences {grey} (need < {ALT_GREY_MAX})")
+    if n_register != n_reg - 2 or n_gba < 1:
+        fail(f"event log: {n_register} register events for {n_reg} registered "
+             f"images, {n_gba} global_ba events")
+    if not (any("blur_vh" in n for n in named) and any("match_tile" in n for n in named)
+            and kernels["mapbuilder"]):
+        fail(f"profiler traces: stage kernels {sorted(kernels['stages'])[:20]}, "
+             f"build kernels {len(kernels['mapbuilder'])}")
+    return launches, {
+        "views": ALT_VIEWS, "registered": n_reg, "points": st.num_points3D,
+        "mean_reproj_px": st.mean_reprojection_error,
+        "center_rms_pct_of_scene": center_pct, "retrieved_pairs": retrieved,
+        "exhaustive_pairs": exhaustive, "undistorted_grey_mean_max": max(grey),
+        "register_events": n_register, "global_ba_events": n_gba,
+        "profiled_views": half, "profiled_registered": prof_reg,
+        "stage_s": stages, "mapbuilder_s": timers,
     }
 
 
@@ -632,8 +933,13 @@ def main():
 
     rates = walled("ba_dense", phase_ba_dense, dev)
     rates.update(walled("ba_pcg", phase_ba_pcg, dev, rates["ba_dense_rmse_final"]))
-    launches, quality = walled("pipeline", phase_reconstruct, dev, MP_VIEWS)
-    rates.update(quality, phase_wall_s=walls)
+    renders, launches, quality = walled("pipeline", phase_reconstruct, dev, MP_VIEWS)
+    rates.update(quality)
+    launches_alt, rates["pipeline_alt"] = walled("pipeline_alt", phase_pipeline_alt,
+                                                 dev, renders)
+    del renders
+    rates["pnp"] = walled("pnp", phase_pnp, dev)
+    rates["phase_wall_s"] = walls
 
     _, err, pair_equal, t = blur_rows[1]  # the octave stack dominates
     _, base_err, base_equal, base_t = blur_rows[0]
@@ -644,6 +950,7 @@ def main():
                 "replaces": f"monocularsfm_tpu/ops/{line}",
                 "launches": launches[name],
                 "launches_extract_match": launches_slice[name],
+                "launches_pipeline_alt": launches_alt[name],
                 "max_abs_err": err, "ms": ms, "plain_ms": plain,
                 "bound_ms": bound, "bound_by": by,
                 "bound_share": bound / ms, "library_ms": library, **extra}

@@ -2,7 +2,7 @@
 
     sfm-torch extract       <config.yaml> [--device cuda]   images -> features
     sfm-torch match         <config.yaml> [--device cuda]   features -> matches
-    sfm-torch check-matches <config.yaml>                   per-pair statistics
+    sfm-torch check-matches <config.yaml> [--render-dir D]  per-pair statistics
     sfm-torch reconstruct   <config.yaml> [--device cuda]   matches -> model + exports
     sfm-torch pipeline      <config.yaml> [--device cuda]   all of the above in order
 
@@ -36,22 +36,23 @@ def cmd_match(cfg, device="cuda", log=print):
     from monocularsfm_torch.features.matching import (
         BruteFeatureMatcher,
         SequentialFeatureMatcher,
+        VocabTreeFeatureMatcher,
     )
 
-    if cfg.matching.match_type not in ("brute", "sequential"):
-        raise ValueError(
-            f"match_type {cfg.matching.match_type!r} is not ported")
     t0 = time.perf_counter()
-    cls = (SequentialFeatureMatcher if cfg.matching.match_type == "sequential"
-           else BruteFeatureMatcher)
+    cls = {
+        "sequential": SequentialFeatureMatcher,
+        "vocab": VocabTreeFeatureMatcher,
+    }.get(cfg.matching.match_type, BruteFeatureMatcher)
     n = cls(cfg.matching, device=device).run_matching(
         cfg.database_path, log=log)
     log(f"[match] wrote {n} pairs in {time.perf_counter()-t0:.1f}s")
     return n
 
 
-def cmd_reconstruct(cfg, device="cuda", log=print):
-    """Reconstruct from the database and export; returns the MapBuilder."""
+def cmd_reconstruct(cfg, device="cuda", log=print, metrics_path=None):
+    """Reconstruct from the database and export; returns the MapBuilder.
+    With `metrics_path`, the build's JSON-lines event log goes there."""
     from monocularsfm_torch.database import Database
     from monocularsfm_torch.reconstruction import MapBuilder
 
@@ -73,8 +74,13 @@ def cmd_reconstruct(cfg, device="cuda", log=print):
         db.close()
 
     builder._log = log
-    builder.setup(matches, keypoints, colors=colors, names=names)
-    summary = builder.do_build()
+    if metrics_path:
+        builder.enable_metrics(metrics_path)
+    try:
+        builder.setup(matches, keypoints, colors=colors, names=names)
+        summary = builder.do_build()
+    finally:
+        builder.close()
     log(str(summary))
 
     out = pathlib.Path(cfg.output_path or ".")
@@ -102,7 +108,9 @@ def cmd_export(cfg, map_obj, out_dir, log=print):
     log(f"[export] COLMAP/PLY/OpenMVS written to {out}")
 
 
-def cmd_check_matches(cfg, log=print):
+def cmd_check_matches(cfg, log=print, render_dir=None):
+    """Per-pair match counts; with `render_dir`, side-by-side PNGs of the top
+    20 pairs (the reference's ShowMatches, headless; needs OpenCV)."""
     from monocularsfm_torch.database import Database
 
     db = Database(cfg.database_path)
@@ -115,6 +123,28 @@ def cmd_check_matches(cfg, log=print):
         )
         for cnt, a, b in counts[:50]:
             log(f"  {names.get(a, a)} -- {names.get(b, b)}: {cnt}")
+        if render_dir:
+            import cv2
+
+            from monocularsfm_torch.utils.debug_draw import draw_matches
+
+            out = pathlib.Path(render_dir)
+            out.mkdir(parents=True, exist_ok=True)
+            root = pathlib.Path(cfg.images_path)
+            for cnt, a, b in counts[:20]:
+                if cnt == 0:
+                    continue
+                m = matches[(a, b)]
+                k1 = db.read_keypoints(a)
+                k2 = db.read_keypoints(b)
+                i1 = cv2.imread(str(root / names[a]))
+                i2 = cv2.imread(str(root / names[b]))
+                if i1 is None or i2 is None:
+                    continue
+                draw_matches(
+                    i1, i2, k1[m[:, 0], :2], k2[m[:, 1], :2],
+                    out / f"matches_{a}_{b}.png",
+                )
         nonzero = [c for c, _, _ in counts if c > 0]
         if nonzero:
             log(
@@ -135,7 +165,12 @@ def main(argv=None):
     for name in ("extract", "match", "check-matches", "reconstruct", "pipeline"):
         p = sub.add_parser(name)
         p.add_argument("config", help="YAML config (reference-style or nested)")
-        if name != "check-matches":
+        if name == "check-matches":
+            p.add_argument(
+                "--render-dir", default=None,
+                help="write side-by-side match PNGs for the top pairs here",
+            )
+        else:
             p.add_argument("--device", default="cuda",
                            help="torch device of the stage (default: cuda)")
     args = parser.parse_args(argv)
@@ -152,7 +187,7 @@ def main(argv=None):
     elif args.command == "match":
         cmd_match(cfg, device=args.device)
     elif args.command == "check-matches":
-        cmd_check_matches(cfg)
+        cmd_check_matches(cfg, render_dir=args.render_dir)
     elif args.command == "reconstruct":
         cmd_reconstruct(cfg, device=args.device)
     elif args.command == "pipeline":

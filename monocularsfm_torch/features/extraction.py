@@ -5,7 +5,9 @@ src/Feature/FeatureExtraction.cpp — glob images :169-183, downscale to
 max_image_size :237-258, SIFT with top-scale retention, keypoints back in
 original coordinates + pixel colours :128-141, per-image DB transaction and
 skip-if-exists resume :69-160).  The "jax" backend of the config names the
-device path, here ops/sift.py on `device`.
+device path, here ops/sift.py on `device`; the "opencv" backend is the JAX
+package's host fallback, cv2.SIFT with the same RootSIFT/L2 normalisation
+(cv2 is imported only when that backend runs).
 """
 
 from __future__ import annotations
@@ -73,10 +75,8 @@ def _resize(gray: np.ndarray, h: int, w: int) -> np.ndarray:
 class FeatureExtractor:
     def __init__(self, config: ExtractionConfig | None = None, device="cuda"):
         self.cfg = config or ExtractionConfig()
-        if self.cfg.backend != "jax":
-            raise ValueError(
-                f"extraction backend {self.cfg.backend!r} is not ported; "
-                "the device path is backend 'jax'")
+        if self.cfg.backend not in ("jax", "opencv"):
+            raise ValueError(f"unknown extraction backend {self.cfg.backend!r}")
         self.device = torch.device(device)
         self._sift = None
 
@@ -101,10 +101,45 @@ class FeatureExtractor:
         return max(1, min(self.cfg.batch_size,
                           self.cfg.batch_pixel_budget // px))
 
+    def extract_one_cv2(self, gray: np.ndarray, bgr: np.ndarray | None = None):
+        """The "opencv" backend on one image: cv2.SIFT on the image cut to
+        max_image_size by cv2.resize.  Returns (keypoints (N, 4) x, y, size,
+        angle in original coordinates, colors (N, 3) uint8 BGR, descriptors
+        (N, 128) float32)."""
+        import cv2
+
+        if self._sift is None:
+            self._sift = cv2.SIFT_create(nfeatures=self.cfg.num_features)
+        h, w = gray.shape[:2]
+        scale = _scale_for(self.cfg.max_image_size, h, w)
+        gray_s = (cv2.resize(gray, (int(w * scale), int(h * scale)))
+                  if scale != 1.0 else gray)
+        cv_kps, desc = self._sift.detectAndCompute(gray_s, None)
+        kps = np.array([[k.pt[0], k.pt[1], k.size, k.angle] for k in cv_kps],
+                       np.float32).reshape(-1, 4)
+        desc = (desc.astype(np.float32) if desc is not None
+                else np.zeros((0, 128), np.float32))
+        # RootSIFT or L2, as the reference normalises (FeatureExtraction.cpp:143-145).
+        if self.cfg.normalization == "l1_root":
+            desc = np.sqrt(desc / np.maximum(np.abs(desc).sum(1, keepdims=True), 1e-12))
+        else:
+            desc = desc / np.maximum(np.linalg.norm(desc, axis=1, keepdims=True), 1e-12)
+        if scale != 1.0:
+            kps[:, :3] /= scale                   # x, y and size
+        if bgr is not None and len(kps):
+            xi = np.clip(np.round(kps[:, 0]).astype(int), 0, w - 1)
+            yi = np.clip(np.round(kps[:, 1]).astype(int), 0, h - 1)
+            colors = bgr[yi, xi]
+        else:
+            colors = np.zeros((len(kps), 3), np.uint8)
+        return kps, colors.astype(np.uint8), desc
+
     def run_extraction(self, images_path: str, database_path: str,
                        log=print) -> int:
         """Process a directory into the database; resumes idempotently.
-        Same-sized images are extracted in batches of eff_batch_size."""
+        With the "jax" backend same-sized images are extracted in batches of
+        eff_batch_size; the "opencv" backend reads (cv2.imread) and extracts
+        one image at a time."""
         db = Database(database_path)
         count = 0
         try:
@@ -118,6 +153,20 @@ class FeatureExtractor:
                 else:
                     image_id = db.write_image(name)
                 pending.append((image_id, name, path))
+
+            if self.cfg.backend == "opencv":
+                import cv2
+
+                for image_id, name, path in pending:
+                    bgr = cv2.imread(str(path), cv2.IMREAD_COLOR)
+                    if bgr is None:
+                        raise IOError(f"cannot read image {path}")
+                    kps, colors, desc = self.extract_one_cv2(
+                        cv2.cvtColor(bgr, cv2.COLOR_BGR2GRAY), bgr)
+                    self._write(db, image_id, kps, colors, desc)
+                    count += 1
+                    log(f"[extract] {name}: {len(kps)} features")
+                return count
 
             batch, metas = [], []
 

@@ -10,15 +10,20 @@ FilterAllTracks when registered >= 1.07x prev :185-191, :613-637; Summary
 The loop is host logic, as in the reference; the engines and bundle
 adjustment run on the builder's `device`.  The map itself (map_state.py)
 is float64 on the host and hands BA float32 problems, which move to the
-device for the solve.  Not ported: the async visualization
-(`is_visualization`), the profiler trace (`profile_dir`), sharded BA over
-several devices, the JSON-lines event log (`enable_metrics`) and the
-`MONOSFM_DUMP_BA` problem dump.
+device for the solve.  Around the loop: the async visualization
+(`is_visualization`, viz.py), a torch.profiler Chrome trace of the build
+(`profile_dir`), the JSON-lines event log (`enable_metrics`) and the
+`MONOSFM_DUMP_BA` snapshot of every global-BA problem.  Not ported: sharded
+BA over several devices (`_ba_mesh` returns None).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
+import pathlib
+import time
 
 import numpy as np
 import torch
@@ -67,13 +72,6 @@ class BuildSummary:
 
 class MapBuilder:
     def __init__(self, config: SfMConfig, device="cuda"):
-        mb = config.map_builder
-        if mb.is_visualization:
-            raise NotImplementedError(
-                "map_builder.is_visualization is not ported to the torch package")
-        if mb.profile_dir:
-            raise NotImplementedError(
-                "map_builder.profile_dir is not ported to the torch package")
         self.cfg = config
         self.device = resolve_device(device)
         self.K = config.camera.K()
@@ -92,6 +90,16 @@ class MapBuilder:
         }
         self._last_global_ba_count = 0
         self._log = print
+        # Optional JSON-lines event log (enable_metrics).
+        self._metrics_fh = None
+        # Async visualization (the reference refreshes every 6 images,
+        # MapBuilder.cpp:172-182; here a PLY + HTML viewer snapshot).
+        self.viz = None
+        if config.map_builder.is_visualization:
+            from monocularsfm_torch.viz import AsyncVisualization
+
+            out = config.output_path or "."
+            self.viz = AsyncVisualization(f"{out}/viz", every_n_updates=6).start()
 
     # -- setup ---------------------------------------------------------------
     def setup(self, matches: dict, keypoints: dict, colors: dict | None = None,
@@ -191,6 +199,11 @@ class MapBuilder:
                 f"[register] image {image_id}: {stats.num_inliers}/"
                 f"{stats.num_point2D_3D_correspondences} inliers, "
                 f"residual {stats.ave_residual:.2f} px"
+            )
+            self._metric(
+                "register", image_id=int(image_id),
+                inliers=stats.num_inliers,
+                residual_px=round(stats.ave_residual, 4),
             )
         return True
 
@@ -325,9 +338,24 @@ class MapBuilder:
                         "no shared-focal columns; keeping K fixed", n_imgs,
                         bcfg.dense_max_images,
                     )
+            # MONOSFM_DUMP_BA=path snapshots every global-BA problem to host
+            # numpy before the solve, for a post-mortem of a failed solve.
+            dump = os.environ.get("MONOSFM_DUMP_BA")
+            if dump:
+                arrs = {k: v.numpy() for k, v in prob.tensors().items()}
+                np.savez(dump, **arrs, _kwargs=json.dumps(
+                    {k: v for k, v in kwargs.items()
+                     if isinstance(v, (int, float, str, bool))}))
             out = self._solve(prob, **kwargs)
             self.map.update_from_ba(out, image_ids, pids)
             self._last_global_ba_count = len(self.map.registered_ids)
+            self._metric(
+                "global_ba", cams=len(image_ids),
+                iters=int(out["iterations"]),
+                rmse=round(float(out["rmse_final"]), 5),
+                solver="dense" if dense else "pcg",
+                sharded=mesh is not None,
+            )
             return out
 
     def maintain_tracks(self, point_ids):
@@ -356,6 +384,25 @@ class MapBuilder:
 
     # -- main loop ------------------------------------------------------------
     def do_build(self) -> BuildSummary:
+        """Run the build; with `profile_dir` set, under torch.profiler (CPU
+        and, on a CUDA device, the card's kernels), written as a Chrome trace
+        `<profile_dir>/mapbuilder_trace.json`."""
+        profile_dir = self.cfg.map_builder.profile_dir
+        if not profile_dir:
+            return self._do_build()
+        from torch.profiler import ProfilerActivity, profile
+
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        with profile(activities=activities) as prof:
+            summary = self._do_build()
+        out = pathlib.Path(profile_dir)
+        out.mkdir(parents=True, exist_ok=True)
+        prof.export_chrome_trace(str(out / "mapbuilder_trace.json"))
+        return summary
+
+    def _do_build(self) -> BuildSummary:
         with self.timers["total"]:
             if len(self.map.registered_ids) >= 2:
                 self._log("[build] map already initialized (resume)")
@@ -377,6 +424,8 @@ class MapBuilder:
                         continue
                     progressed = True
                     self.triangulate_new(image_id)
+                    if self.viz is not None:
+                        self.viz.update(self.map)
                     self._maybe_snapshot()
                     n_reg = len(self.map.registered_ids)
                     if n_reg >= self.cfg.map_builder.global_ba_ratio * max(
@@ -394,7 +443,32 @@ class MapBuilder:
             if len(self.map.registered_ids) != self._last_global_ba_count:
                 self.global_ba()
                 self.maintain_tracks(self.map.point_ids())
+        if self.viz is not None:
+            self.viz._count = 0
+            self.viz.every = 1
+            self.viz.update(self.map)  # final frame
+            self.viz.close()
         return self.summary()
+
+    def enable_metrics(self, path):
+        """Write one JSON line per event (register, global_ba) to `path`."""
+        self._metrics_fh = open(path, "a")
+        return self
+
+    def close(self):
+        """Close the event log, if one is open."""
+        if self._metrics_fh is not None:
+            self._metrics_fh.close()
+            self._metrics_fh = None
+
+    def _metric(self, event: str, **fields):
+        if self._metrics_fh is None:
+            return
+        rec = {"t": round(time.time(), 3), "event": event,
+               "num_registered": len(self.map.registered_ids),
+               "num_points": self.map.num_points3D, **fields}
+        self._metrics_fh.write(json.dumps(rec) + "\n")
+        self._metrics_fh.flush()
 
     def _maybe_snapshot(self):
         every = self.cfg.map_builder.snapshot_every_registrations

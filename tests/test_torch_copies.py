@@ -13,7 +13,8 @@ REPO = pathlib.Path(__file__).resolve().parent.parent
 COPIED = ["types.py", "config.py", "database.py", "utils/timer.py",
           "utils/caps.py", "reconstruction/scene_graph.py",
           "reconstruction/register_graph.py", "reconstruction/map_state.py",
-          "io/ply.py", "native/scene_graph_core.cpp"]
+          "io/ply.py", "native/scene_graph_core.cpp", "viz.py",
+          "utils/debug_draw.py"]
 
 
 @pytest.mark.parametrize("rel", COPIED)
@@ -57,6 +58,8 @@ def test_port_never_imports_jax():
         "import monocularsfm_torch.geometry, monocularsfm_torch.optim\n"
         "import monocularsfm_torch.reconstruction, monocularsfm_torch.io\n"
         "import monocularsfm_torch.native, monocularsfm_torch.ops.undistort\n"
+        "import monocularsfm_torch.ops.vocab, monocularsfm_torch.viz\n"
+        "import monocularsfm_torch.utils.debug_draw\n"
         "from monocularsfm_torch.cli import cmd_reconstruct, cmd_export\n"
         "monocularsfm_torch.native.get_lib()\n"
         "bad = [m for m in sys.modules\n"

@@ -286,3 +286,69 @@ def test_bundle_adjust_on_the_card_matches_the_cpu(dev, mode):
         assert (gpu[k].cpu() - cpu[k]).abs().max().item() <= 1e-3, k
     with pytest.raises(ValueError, match="lies on"):
         bundle_adjust(prob, device=dev, **kw)
+
+
+@pytest.mark.parametrize("method", ["p3p", "ap3p", "p6p", "upnp", "epnp"])
+def test_pnp_on_the_card_matches_the_cpu(dev, method):
+    """The same draws on both devices: the same winner after the polish.
+    UPnP does not refine its focal, and near-tied hypotheses whose focal
+    differs by about 1% may win on either device: the same inliers within
+    1%, the rotation within 1e-3, each focal within 2% of the truth."""
+    from monocularsfm_torch.estimators.pnp import estimate_pnp_ransac
+    from monocularsfm_torch.utils.synthetic import camera_ring_scene
+
+    scene = camera_ring_scene(num_cameras=3, num_points=800, noise_px=0.5, seed=5)
+    rng = np.random.default_rng(5)
+    vis = np.nonzero(scene.visible[2])[0][:512]
+    uv = scene.observations[2][vis].copy()
+    bad = rng.random(len(uv)) < 0.3
+    uv[bad] = rng.uniform(0, [scene.width, scene.height], (bad.sum(), 2))
+    args = [torch.from_numpy(a) for a in (
+        scene.K.astype(np.float32), scene.points[vis].astype(np.float32),
+        uv.astype(np.float32), np.ones(len(vis), bool))]
+    u = torch.rand((512, len(vis)), generator=torch.Generator().manual_seed(0))
+    cpu = estimate_pnp_ransac(u, *args, method=method)
+    gpu = estimate_pnp_ransac(u.to(dev), *(a.to(dev) for a in args), method=method)
+    n_c, n_g = int(cpu["num_inliers"]), int(gpu["num_inliers"])
+    agree = (gpu["inliers"].cpu() == cpu["inliers"]).float().mean().item()
+    if method == "upnp":
+        assert abs(n_g - n_c) <= 0.01 * n_c and agree >= 0.99
+        assert (gpu["R"].cpu() - cpu["R"]).abs().max().item() <= 1e-3
+        for out in (cpu, gpu):
+            assert abs(float(out["focal"]) / scene.K[0, 0] - 1.0) <= 0.02
+        return
+    assert n_g == n_c and agree >= 0.999
+    for k in ("R", "t"):
+        assert (gpu[k].cpu() - cpu[k]).abs().max().item() <= 1e-3, k
+
+
+def test_vocab_quantize_on_the_card_matches_the_cpu(dev):
+    """k-means, histograms and retrieval on both devices.  One word starts in
+    each of 16 well-separated clusters, so no descriptor sits halfway
+    between two words (where `index_add_`'s order on the card could flip
+    it): the centroids agree within 1e-5, the histograms and neighbours
+    exactly.  `train_visual_vocab` on the card returns unit words there."""
+    from monocularsfm_torch.ops import vocab
+
+    rng = np.random.default_rng(0)
+    centers = rng.normal(size=(16, 128)).astype(np.float32)
+    label = rng.integers(0, 16, 4000)
+    label[:16] = np.arange(16)
+    desc = centers[label] + 0.05 * rng.normal(size=(4000, 128)).astype(np.float32)
+    desc /= np.linalg.norm(desc, axis=1, keepdims=True)
+    d, init = torch.from_numpy(desc), torch.arange(16)
+    vc = vocab._kmeans_fit(d, init, 16, 5)
+    vg = vocab._kmeans_fit(d.to(dev), init.to(dev), 16, 5)
+    assert vg.device.type == "cuda"
+    assert (vg.cpu() - vc).abs().max().item() <= 1e-5
+    bank = d[:3000].reshape(6, 500, 128)
+    mask = torch.ones((6, 500), dtype=torch.bool)
+    hc = vocab.quantize_batch(bank, mask, vc, 16)
+    hg = vocab.quantize_batch(bank.to(dev), mask.to(dev), vg, 16)
+    assert torch.equal(hg.cpu(), hc)
+    _, nc = vocab.retrieve_top_k(vocab.tfidf_signatures(hc), 3)
+    _, ng = vocab.retrieve_top_k(vocab.tfidf_signatures(hg), 3)
+    assert torch.equal(ng.cpu(), nc)
+    words = vocab.train_visual_vocab(desc, num_words=64, iterations=3, device=dev)
+    assert words.device.type == "cuda" and words.shape == (64, 128)
+    assert (torch.linalg.norm(words, dim=1) - 1.0).abs().max().item() <= 1e-5

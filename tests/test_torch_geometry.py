@@ -1,4 +1,4 @@
-"""The port's geometry, sliced linear algebra and E/H/EPnP estimators against
+"""The port's geometry, sliced linear algebra and E/H/EPnP/P3P estimators against
 the JAX package's, on the CPU, with the reference's RANSAC draws injected."""
 
 import jax
@@ -257,6 +257,11 @@ def test_epnp_ransac_matches_reference():
     assert abs(float(out["mean_inlier_error_px"])
                - float(ref["mean_inlier_error_px"])) <= 1e-3
     np.testing.assert_allclose(out["R"].numpy(), R, atol=0.01)
-    with pytest.raises(NotImplementedError):
-        TP.estimate_pnp_ransac(_draws(key, M, cap), _t(K), _t(Xp), _t(Up),
-                               _t(m), method="p3p")
+    # The same inputs through P3P (tests/test_torch_pnp.py holds every method).
+    ref = JP.estimate_pnp_ransac(key, K, Xp, Up, m, threshold_px=4.0,
+                                 num_hyps=M, method="p3p")
+    out = TP.estimate_pnp_ransac(_draws(key, M, cap), _t(K), _t(Xp), _t(Up),
+                                 _t(m), threshold_px=4.0, method="p3p")
+    np.testing.assert_array_equal(out["inliers"].numpy(), _j(ref["inliers"]))
+    np.testing.assert_allclose(out["R"].numpy(), _j(ref["R"]), atol=POSE_TOL)
+    np.testing.assert_allclose(out["t"].numpy(), _j(ref["t"]), atol=POSE_TOL)

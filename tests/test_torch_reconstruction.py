@@ -213,10 +213,18 @@ def test_registrant_matches_reference_with_injected_draws():
     np.testing.assert_allclose(out[1], ref[1], atol=POSE_TOL)
     np.testing.assert_allclose(out[2], ref[2], atol=POSE_TOL)
     assert abs(out[0].ave_residual - ref[0].ave_residual) <= 1e-3
-    bad_cfg = tc.RegistrantConfig()
-    bad_cfg.pnp_method = "p3p"
-    with pytest.raises(NotImplementedError):
-        TR(scene.K, bad_cfg, device="cpu")
+    # P3P on the same correspondences (tests/test_torch_pnp.py holds every
+    # method).
+    for c in cfgs:
+        c.pnp_method = "p3p"
+    ref = JR(scene.K, cfgs[0]).register(xyz, uv)
+    reg = TR(scene.K, cfgs[1], device="cpu")
+    reg._draw = JaxDraws(7)
+    out = reg.register(xyz, uv)
+    assert out[0].is_succeed and out[0].num_inliers == ref[0].num_inliers
+    np.testing.assert_array_equal(out[3], ref[3])
+    np.testing.assert_allclose(out[1], ref[1], atol=POSE_TOL)
+    np.testing.assert_allclose(out[2], ref[2], atol=POSE_TOL)
 
 
 def test_triangulator_matches_reference():
