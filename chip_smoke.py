@@ -15,12 +15,17 @@ stages (`sfm-torch extract`, `match`, `check-matches`) on 8 rendered
 the card: the dense Schur solver on a 128-camera / 40k-point ring (against
 the same solve on the CPU) and the PCG solver on a 1024-camera /
 200k-point ring with split tracks.  Then `sfm-torch pipeline` (extract,
-match, reconstruct, export) on 24 rendered 1280x960 views of a
-multi-plane scene, checked against the true poses.  Then a second
+match, reconstruct, export) on 56 rendered 1280x960 views of a
+multi-plane scene, checked against the true poses, with dense and PCG
+global bundle adjustments (the event log names each one's solver).  Then a second
 pipeline on 16 of those views as a camera with lens distortion records
 them, with vocabulary retrieval, P3P registration, the event log, profiler
-traces and the undistorted-image export; last the PnP solvers (p3p, ap3p,
-p6p, upnp) on the card against the CPU with the same draws.  It stops at the first failure with a non-zero exit.  The last three lines of standard output are
+traces and the undistorted-image export; then the PnP solvers (p3p, ap3p,
+p6p, upnp) on the card against the CPU with the same draws; last the
+shipped configs' image size: the fused blur at the octave-0 shape of a
+3200x2400 image, that image's SIFT on the card against the CPU, and
+`sfm-torch extract` of two 4000x3000 PNGs resized to 3200x2400.  It stops
+at the first failure with a non-zero exit.  The last three lines of standard output are
 the card's name and power limit (nvidia-smi), one JSON object describing
 the kernels and the measured rates, and {"ok": true, "device": {...}}.
 Logs go to stderr.
@@ -31,7 +36,6 @@ from __future__ import annotations
 import json
 import math
 import os
-import subprocess
 import sys
 import tempfile
 import time
@@ -60,9 +64,11 @@ CUDA_CPU_RTOL = 1e-4            # cost after 1..3 LM iterations, card vs CPU
 FIXED_WORK = dict(function_tolerance=0.0, parameter_tolerance=0.0,
                   gradient_tolerance=0.0, pcg_rtol=0.0)
 PCG_DENSE_TOL = 2e-3            # px of rmse_final, PCG vs dense, 128 cameras
-# Pipeline: tools/scale_run.py's recipe at 24 views (mp128 camera spacing;
-# 32 until the smoke gained its PnP and alternate-pipeline phases).
-MP_VIEWS, MP_W, MP_H, MP_SEED = 24, 1280, 960, 7
+# Pipeline: tools/scale_run.py's recipe at 56 views (mp128 camera spacing),
+# past config.py's dense_max_images of 50, so that global BA must take PCG
+# on split track rows; on this scene the dense path's observation capacity
+# (dense_max_obs) already sends it there from 25 views on.
+MP_VIEWS, MP_W, MP_H, MP_SEED = 56, 1280, 960, 7
 MP_ARC_PER_VIEW = 200.0 / 128
 MP_REPROJ_MAX, MP_CENTER_PCT_MAX, MP_MIN_POINTS = 0.5, 0.1, 5000
 # PnP: every minimal solver on one ring view, card against CPU with the same
@@ -83,6 +89,16 @@ UPNP_FOCAL_SCALE, UPNP_FOCAL, UPNP_COUNT, UPNP_AGREE = 1.08, 0.02, 0.01, 0.99
 ALT_VIEWS, ALT_MIN_REG, ALT_NEIGHBORS = 16, 15, 6
 ALT_DIST = [-0.08, 0.012, 4e-4, -6e-4]   # tests/test_distortion_pipeline.py
 ALT_GREY_MAX, ALT_MARGIN = 3.0, 48       # mean |undistorted - pinhole|, interior
+# The shipped configs' max_image_size: a 3200x2400 image (octave 0 at
+# 6400x4800 after the 2x upsample, one image per batch), and two 4000x3000
+# PNGs that the extraction stage resizes to it.
+BIG_W, BIG_H, BIG_SEED = 3200, 2400, 11
+BIG_SHAPE = (1, 2 * BIG_H, 2 * BIG_W)
+# The card's and the CPU's f32 sums may settle a borderline candidate
+# differently (5050 against 5049 keypoints, every one paired), so the
+# counts are held within 1%, as tests/test_torch_sift.py holds them.
+KP_COUNT_TOL = 0.01
+HUGE_W, HUGE_H, HUGE_IMAGES = 4000, 3000, 2
 
 
 def log(*a):
@@ -111,12 +127,9 @@ def time_ms(fn, reps: int = 10) -> float:
 def phase_device() -> str:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke needs a GPU")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60)
-    if smi.returncode != 0:
-        fail(f"nvidia-smi failed: {smi.stderr.strip()}")
-    line = smi.stdout.strip().splitlines()[0]
+    from monocularsfm_torch.utils.card import card_line
+
+    line = card_line("cuda")
     print(line, flush=True)
     log(f"[device] {torch.cuda.get_device_name(0)} | torch {torch.__version__} "
         f"cuda {torch.version.cuda} | {line}")
@@ -136,8 +149,8 @@ def phase_build():
             log(f"[build] {line.strip()}")
 
 
-def check_blur(dev):
-    """Each blur kernel against its plain version at the octave-0 shape,
+def check_blur(dev, shape=BLUR_SHAPE):
+    """Each blur kernel against its plain version at an octave-0 shape,
     both (C, T); the fused kernel also bit for bit against the single
     passes; each timed beside its bound, its plain version and one library
     call of the same function (F.conv2d on the replicate-padded input, TF32
@@ -149,7 +162,7 @@ def check_blur(dev):
     from monocularsfm_torch.utils import roofline
 
     g = torch.Generator(dev).manual_seed(SEED)
-    base = torch.rand(BLUR_SHAPE, generator=g, device=dev)
+    base = torch.rand(shape, generator=g, device=dev)
     kb = gaussian_kernel1d(math.sqrt(SIGMA0 ** 2 - 4.0 * INIT_SIGMA ** 2))
     rows = []
     for name, taps_np in (("base C=1 T=9", kb[None]), ("octave C=5 T=31", _OCT_KER)):
@@ -189,8 +202,8 @@ def check_blur(dev):
         for k, work in (("v", roofline.blur_v_work), ("h", roofline.blur_h_work),
                         ("vh", roofline.blur_multi_work)):
             t[f"{k}_bound"], t[f"{k}_bound_by"] = roofline.bound(
-                *work(*BLUR_SHAPE, C, T), "fp32")
-        log(f"[blur] {name} at {BLUR_SHAPE}: err {err}, fused equal to the "
+                *work(*shape, C, T), "fp32")
+        log(f"[blur] {name} at {shape}: err {err}, fused equal to the "
             f"pair: {pair_equal}")
         for k in ("v", "h", "vh"):
             log(f"[blur]   {k} {t[k]:.4f} ms (bound {t[f'{k}_bound']:.4f} "
@@ -569,13 +582,16 @@ def phase_reconstruct(dev, views):
             log(f"[pipeline] {name}: {stages[name]:.2f}s")
             return res
 
+        metrics = os.path.join(tmp, "events.jsonl")
         blur.reset_launches()
         match_kernel.reset_launches()
         stage("extract", cli.cmd_extract, cfg, device=dev, log=quiet)
         n_pairs = stage("match", cli.cmd_match, cfg, device=dev, log=quiet)
         builder = stage("reconstruct", cli.cmd_reconstruct, cfg, device=dev,
-                        log=log)
+                        log=log, metrics_path=metrics)
         launches = dict(blur.LAUNCHES, **match_kernel.LAUNCHES)
+        with open(metrics) as f:
+            gba = [e for e in map(json.loads, f) if e["event"] == "global_ba"]
         if builder.map._native is None:
             fail("the native track-maintenance library is not loaded")
         log(f"[pipeline] native library loaded: {native.library_path().name}")
@@ -603,7 +619,10 @@ def phase_reconstruct(dev, views):
         f"{center_pct:.5f}% of the scene diagonal, {n_pairs} pairs matched")
     log(f"[pipeline] MapBuilder timers (s): "
         + ", ".join(f"{k} {v:.2f}" for k, v in timers.items()))
-    log(f"[pipeline] launches {launches}")
+    pcg = [e for e in gba if e["solver"] == "pcg"]
+    largest = max(pcg, key=lambda e: e["cams"], default=None)
+    log(f"[pipeline] launches {launches}; global BAs (cams, solver): "
+        f"{[(e['cams'], e['solver']) for e in gba]}")
     if st.num_registered_images < views - 1:
         fail(f"registered {st.num_registered_images} of {views} views")
     if not st.mean_reprojection_error < MP_REPROJ_MAX:
@@ -622,6 +641,8 @@ def phase_reconstruct(dev, views):
              f"mvs {mvs}")
     if not (launches["blur_vh"] > 0 and launches["match_tile"] > 0):
         fail(f"pipeline kernel launches {launches}")
+    if views > cfg.bundle.dense_max_images and not pcg:
+        fail(f"{views} views but no global BA ran PCG: {gba}")
     return (imgs, K, R_gt, t_gt), launches, {
         "pipeline_views": views,
         "pipeline_registered": st.num_registered_images,
@@ -630,6 +651,12 @@ def phase_reconstruct(dev, views):
         "pipeline_center_rms_pct_of_scene": center_pct,
         "pipeline_stage_s": stages,
         "pipeline_mapbuilder_s": timers,
+        "pipeline_reconstruct_outside_mapbuilder_s":
+            stages["reconstruct"] - timers["total"],
+        "pipeline_global_ba": {
+            "dense": len(gba) - len(pcg), "pcg": len(pcg),
+            "largest_pcg": (None if largest is None else
+                            {k: largest[k] for k in ("cams", "iters", "rmse")})},
     }
 
 
@@ -911,6 +938,134 @@ def phase_pipeline_alt(dev, renders):
         "stage_s": stages, "mapbuilder_s": timers,
     }
 
+def pair_keypoints(ka, kb):
+    """For each keypoint of `ka`, the index of a keypoint of `kb` within
+    KP_TOL on both axes and 0.5 degrees of orientation, or -1 (a k-d tree,
+    for the 8024 keypoints of a 3200x2400 image)."""
+    from scipy.spatial import cKDTree
+
+    dist, idx = cKDTree(kb[:, :2]).query(ka[:, :2], k=8, p=np.inf,
+                                         distance_upper_bound=KP_TOL)
+    out = np.full(len(ka), -1)
+    for r in range(len(ka)):
+        for d, j in zip(dist[r], idx[r]):
+            if d < KP_TOL and abs((ka[r, 3] - kb[j, 3] + 180.0) % 360.0 - 180.0) <= 0.5:
+                out[r] = j
+                break
+    return out
+
+
+def phase_3200(dev):
+    """The shipped configs' image size: the fused blur at its octave-0 shape;
+    one 3200x2400 image through SIFT on the card against the port's CPU path
+    (counts within KP_COUNT_TOL, KP_AGREE of the keypoints within KP_TOL
+    both ways); then `sfm-torch extract` of two 4000x3000 PNGs, which the
+    stage's integer resize brings to 3200x2400 (keypoints those of the
+    resized image scaled back, 128-wide descriptors in the database)."""
+    from monocularsfm_torch import cli
+    from monocularsfm_torch.config import SfMConfig
+    from monocularsfm_torch.database import Database
+    from monocularsfm_torch.features.extraction import _resize, _scale_for
+    from monocularsfm_torch.ops import blur, match_kernel
+    from monocularsfm_torch.ops.sift import SIFT
+    from monocularsfm_torch.utils.png import write_png
+    from monocularsfm_torch.utils.synthetic import render_textured_images
+
+    blur_rows = check_blur(dev, BIG_SHAPE)
+    t0 = time.perf_counter()
+    img = render_textured_images(num_cameras=1, width=BIG_W, height=BIG_H,
+                                 scene_seed=BIG_SEED)[0][0]
+    t_render = time.perf_counter() - t0
+    sift = SIFT(device=dev)
+    sift.extract(img)                                       # first-call costs
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    kg, dg = sift.extract(img)
+    torch.cuda.synchronize()
+    t_cuda = time.perf_counter() - t0
+    peak_sift = torch.cuda.max_memory_allocated()
+    t0 = time.perf_counter()
+    kc, dc = SIFT(device="cpu").extract(img)
+    t_cpu = time.perf_counter() - t0
+    j = pair_keypoints(kc, kg)
+    paired = j >= 0
+    share = min(paired.mean(), (pair_keypoints(kg, kc) >= 0).mean())
+    derr = np.abs(dc[paired] - dg[j[paired]]).max()
+    log(f"[3200] SIFT {BIG_W}x{BIG_H} (rendered in {t_render:.1f}s): {len(kc)} cpu / "
+        f"{len(kg)} cuda keypoints, {share:.4f} paired within {KP_TOL} px both "
+        f"ways, descriptor err {derr:.3g} | cuda {t_cuda:.3f}s (peak "
+        f"{peak_sift / 2**30:.2f} GiB), cpu {t_cpu:.1f}s")
+    if (abs(len(kg) - len(kc)) > KP_COUNT_TOL * len(kc) or share < KP_AGREE
+            or derr > DESC_TOL):
+        fail(f"SIFT {BIG_W}x{BIG_H} cuda vs cpu: {len(kg)} vs {len(kc)} keypoints "
+             f"(tol {KP_COUNT_TOL}), paired {share} (need {KP_AGREE}), descriptor "
+             f"err {derr} (tol {DESC_TOL})")
+
+    t0 = time.perf_counter()
+    huge = render_textured_images(num_cameras=HUGE_IMAGES, width=HUGE_W,
+                                  height=HUGE_H, scene_seed=BIG_SEED)[0]
+    with tempfile.TemporaryDirectory() as tmp:
+        images = os.path.join(tmp, "images")
+        os.makedirs(images)
+        for i, im in enumerate(huge):
+            write_png(f"{images}/big{i}.png", im)
+        t_prep = time.perf_counter() - t0
+        cfg = SfMConfig(images_path=images, database_path=f"{tmp}/big.db")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        blur.reset_launches()
+        match_kernel.reset_launches()
+        t0 = time.perf_counter()
+        n_img = cli.cmd_extract(cfg, device=dev, log=lambda *a: None)
+        torch.cuda.synchronize()
+        t_extract = time.perf_counter() - t0
+        launches = dict(blur.LAUNCHES, **match_kernel.LAUNCHES)
+        peak_extract = torch.cuda.max_memory_allocated()
+        db = Database(cfg.database_path)
+        try:
+            ids = sorted(db.read_all_images())
+            kps = [db.read_keypoints(i) for i in ids]
+            descs = [db.read_descriptors(i) for i in ids]
+        finally:
+            db.close()
+    octaves = sift.num_octaves(BIG_H, BIG_W)
+    per_image = 1 + octaves
+    # The stage's keypoints are SIFT's on the resized image, scaled back.
+    scale = _scale_for(cfg.extraction.max_image_size, HUGE_H, HUGE_W)
+    k_ref = sift.extract(_resize(huge[0], BIG_H, BIG_W))[0]
+    k_err = (np.abs(kps[0][:, :3] - k_ref[:, :3] / scale).max()
+             if len(k_ref) == len(kps[0]) else math.inf)
+    log(f"[3200] extract {n_img} PNGs {HUGE_W}x{HUGE_H} (rendered and written in "
+        f"{t_prep:.1f}s) in {t_extract:.2f}s: keypoints {[len(k) for k in kps]}, "
+        f"against SIFT of the resized image / {scale}: {len(k_ref)} keypoints, "
+        f"max diff {k_err:.3g} px; peak {peak_extract / 2**30:.2f} GiB, launches "
+        f"{launches} (expected blur_vh {HUGE_IMAGES} x (1 + {octaves}))")
+    if n_img != HUGE_IMAGES or len(ids) != HUGE_IMAGES:
+        fail(f"extracted {n_img} of {HUGE_IMAGES} 4000x3000 images")
+    if not k_err <= 1e-3:
+        fail(f"4000x3000 extraction: keypoints differ from SIFT of the resized "
+             f"image scaled back by {k_err} px")
+    for k, d in zip(kps, descs):
+        inside = ((k[:, 0] >= 0) & (k[:, 0] < HUGE_W) & (k[:, 1] >= 0)
+                  & (k[:, 1] < HUGE_H)).all()
+        if not (len(k) >= MIN_KEYPOINTS and inside
+                and d.shape == (len(k), 128) and np.isfinite(d).all()):
+            fail(f"4000x3000 extraction: {len(k)} keypoints, inside {inside}, "
+                 f"descriptors {d.shape}")
+    if launches["blur_vh"] != HUGE_IMAGES * per_image:
+        fail(f"4000x3000 extraction launched blur_vh {launches['blur_vh']} times, "
+             f"expected {HUGE_IMAGES * per_image}")
+    return blur_rows, launches, {
+        "sift_3200_keypoints": len(kg), "sift_3200_cpu_keypoints": len(kc),
+        "sift_3200_paired_share": float(share),
+        "sift_3200_descriptor_err": float(derr), "sift_3200_cuda_s": t_cuda,
+        "sift_3200_cpu_s": t_cpu, "sift_3200_peak_bytes": peak_sift,
+        "extract_4000x3000_images": n_img, "extract_4000x3000_s": t_extract,
+        "extract_4000x3000_keypoints": [len(k) for k in kps],
+        "extract_4000x3000_peak_bytes": peak_extract,
+    }
+
 
 def main():
     dev = "cuda"
@@ -939,6 +1094,7 @@ def main():
                                                  dev, renders)
     del renders
     rates["pnp"] = walled("pnp", phase_pnp, dev)
+    blur_3200, launches_3200, rates["size_3200"] = walled("size_3200", phase_3200, dev)
     rates["phase_wall_s"] = walls
 
     _, err, pair_equal, t = blur_rows[1]  # the octave stack dominates
@@ -951,6 +1107,7 @@ def main():
                 "launches": launches[name],
                 "launches_extract_match": launches_slice[name],
                 "launches_pipeline_alt": launches_alt[name],
+                "launches_extract_4000x3000": launches_3200[name],
                 "max_abs_err": err, "ms": ms, "plain_ms": plain,
                 "bound_ms": bound, "bound_by": by,
                 "bound_share": bound / ms, "library_ms": library, **extra}
@@ -970,7 +1127,14 @@ def main():
                    equal_to_pair={"C=5 T=31": pair_equal, "C=1 T=9": base_equal},
                    pair_ms={"C=5 T=31": t["pair"], "C=1 T=9": base_t["pair"]},
                    library_is="F.conv2d, (C, 1, T, T) outer-product weights",
-                   library_max_abs_err=err["vh_library"]),
+                   library_max_abs_err=err["vh_library"],
+                   shape_3200={"shape": list(BIG_SHAPE), **{
+                       name: {"max_abs_err": e["vh"], "equal_to_pair": eq,
+                              "ms": bt["vh"], "plain_ms": bt["vh_plain"],
+                              "bound_ms": bt["vh_bound"],
+                              "bound_by": bt["vh_bound_by"],
+                              "library_ms": bt["vh_library"]}
+                       for name, e, eq, bt in blur_3200}}),
         entry("match_tile", "match_tile.cu", "pallas_matching.py:39", sim_err,
               tm["kernel"], tm["plain"], tm["bound"], tm["bound_by"],
               tm["library"], index_agreement=agree,

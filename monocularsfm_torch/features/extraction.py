@@ -16,7 +16,6 @@ import pathlib
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from monocularsfm_torch.config import ExtractionConfig
 from monocularsfm_torch.database import Database
@@ -33,10 +32,10 @@ def list_images(images_path: str) -> list[pathlib.Path]:
 
 
 def _bgr_to_gray(bgr: np.ndarray) -> np.ndarray:
-    """BT.601 luma in 16-bit fixed point, (B*7471 + G*38470 + R*19595 +
-    32768) >> 16: exact against cv2.cvtColor(BGR2GRAY) on gray images."""
+    """BT.601 luma in OpenCV's 15-bit fixed point, (B*3735 + G*19235 +
+    R*9798 + 16384) >> 15: cv2.cvtColor(BGR2GRAY) bit for bit."""
     b, g, r = (bgr[..., i].astype(np.uint32) for i in range(3))
-    return ((b * 7471 + g * 38470 + r * 19595 + 32768) >> 16).astype(np.uint8)
+    return ((b * 3735 + g * 19235 + r * 9798 + 16384) >> 15).astype(np.uint8)
 
 
 def _load_gray_and_color(path):
@@ -64,12 +63,34 @@ def _scale_for(max_size: int, h: int, w: int) -> float:
     return 1.0 if m <= max_size else max_size / m
 
 
+def _resize_taps(n_src: int, n_dst: int, clamp: bool):
+    """Source indices and 11-bit weights of one axis of cv2.resize's
+    INTER_LINEAR on 8-bit images: f = float32((d + 0.5) * scale - 0.5),
+    s = floor(f), weights round(2048 * (1 - f)) and round(2048 * f).  Columns
+    (`clamp`) past either edge take the edge pixel with weight 2048; rows
+    keep their weights and read the edge row twice."""
+    scale = 1.0 / (n_dst / n_src)
+    f = ((np.arange(n_dst) + 0.5) * scale - 0.5).astype(np.float32)
+    s = np.floor(f).astype(np.int64)
+    f -= s.astype(np.float32)
+    if clamp:
+        f[(s < 0) | (s >= n_src - 1)] = 0.0
+    w1 = np.rint(np.float32(2048) * f).astype(np.int32)
+    w0 = np.rint(np.float32(2048) * (np.float32(1) - f)).astype(np.int32)
+    return np.clip(s, 0, n_src - 1), np.clip(s + 1, 0, n_src - 1), w0, w1
+
+
 def _resize(gray: np.ndarray, h: int, w: int) -> np.ndarray:
-    """Bilinear resize (half-pixel centres, no antialias) back to uint8."""
-    t = torch.from_numpy(gray).float()[None, None]
-    t = F.interpolate(t, size=(h, w), mode="bilinear", align_corners=False,
-                      antialias=False)
-    return torch.clamp(torch.round(t[0, 0]), 0, 255).to(torch.uint8).numpy()
+    """cv2.resize(gray, (w, h)) with INTER_LINEAR, bit for bit, in integer
+    numpy on the host: horizontal sums r = a0*x[s] + a1*x[s+1], then
+    ((b0*(r0 >> 4)) >> 16 + (b1*(r1 >> 4)) >> 16 + 2) >> 2."""
+    x = gray.astype(np.int32)
+    c0, c1, a0, a1 = _resize_taps(gray.shape[1], w, clamp=True)
+    r0, r1, b0, b1 = _resize_taps(gray.shape[0], h, clamp=False)
+    r = x[:, c0] * a0 + x[:, c1] * a1                     # (H, w)
+    out = (((b0[:, None] * (r[r0] >> 4)) >> 16)
+           + ((b1[:, None] * (r[r1] >> 4)) >> 16) + 2) >> 2
+    return out.astype(np.uint8)
 
 
 class FeatureExtractor:

@@ -60,8 +60,12 @@ def test_port_never_imports_jax():
         "import monocularsfm_torch.native, monocularsfm_torch.ops.undistort\n"
         "import monocularsfm_torch.ops.vocab, monocularsfm_torch.viz\n"
         "import monocularsfm_torch.utils.debug_draw\n"
+        "import monocularsfm_torch.utils.card\n"
         "from monocularsfm_torch.cli import cmd_reconstruct, cmd_export\n"
         "monocularsfm_torch.native.get_lib()\n"
+        "import runpy\n"
+        "for tool in ('scale_run_torch', 'measure_3200_torch', 'profile_sift_torch'):\n"
+        "    runpy.run_path(f'tools/{tool}.py', run_name='tool')\n"
         "bad = [m for m in sys.modules\n"
         "       if m.split('.')[0] in ('jax', 'jaxlib', 'monocularsfm_tpu')]\n"
         "assert not bad, bad\n"
