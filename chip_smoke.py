@@ -24,8 +24,15 @@ traces and the undistorted-image export; then the PnP solvers (p3p, ap3p,
 p6p, upnp) on the card against the CPU with the same draws; last the
 shipped configs' image size: the fused blur at the octave-0 shape of a
 3200x2400 image, that image's SIFT on the card against the CPU, and
-`sfm-torch extract` of two 4000x3000 PNGs resized to 3200x2400.  It stops
-at the first failure with a non-zero exit.  The last three lines of standard output are
+`sfm-torch extract` of two 4000x3000 PNGs resized to 3200x2400.  Last
+the multi-device layer (`phase_parallel`) on the one card: landmark-sharded
+BA as a world of one NCCL rank in this process and as two gloo ranks
+sharing the card (the dense and the scaling table's PCG ring, against the
+unsharded solve), pair-sharded and ring matching over the two ranks
+(against the single-device kernel's maps), the dry run, and `sfm-torch
+match` + `reconstruct` under `torch.distributed.run` with two ranks on 16
+of the pipeline's views.  It stops at the first failure with a non-zero
+exit.  The last three lines of standard output are
 the card's name and power limit (nvidia-smi), one JSON object describing
 the kernels and the measured rates, and {"ok": true, "device": {...}}.
 Logs go to stderr.
@@ -99,6 +106,22 @@ BIG_SHAPE = (1, 2 * BIG_H, 2 * BIG_W)
 # counts are held within 1%, as tests/test_torch_sift.py holds them.
 KP_COUNT_TOL = 0.01
 HUGE_W, HUGE_H, HUGE_IMAGES = 4000, 3000, 2
+# The multi-device layer on one card: a world of one NCCL rank, and two gloo
+# ranks sharing the card (NCCL takes one rank per GPU).  Sharded BA is held
+# to the unsharded solve on the same problem; the second ring is the
+# scaling table's (tools/scaling_table_torch.py).
+PAR_RMSE_TOL = 1e-3
+PAR_PCG_CAMS, PAR_PCG_POINTS, PAR_PCG_TRACK = 256, 50_000, 6
+PAR_MATCH_IMAGES = 8                 # 28 pairs of match_bank at capacity 8192
+PAR_VIEWS, PAR_MIN_REG, PAR_DENSE_MAX = 16, 15, 8
+PAR_TIMEOUT = 300.0
+PAR_PROBLEMS = (   # (name, (cams, points, track, seed), solver arguments)
+    ("dense", (BA_CAMS, BA_POINTS, BA_TRACK, 2),
+     dict(max_iterations=BA_ITERS, **FIXED_WORK)),
+    ("pcg", (PAR_PCG_CAMS, PAR_PCG_POINTS, PAR_PCG_TRACK, 3),
+     dict(max_iterations=PCG_LM_ITERS, solve_mode="pcg", pcg_iters=PCG_INNER,
+          **FIXED_WORK)),
+)
 
 
 def log(*a):
@@ -431,42 +454,6 @@ def phase_slice(dev):
     return launches, n_img / t_ext, n_pairs / t_match
 
 
-def ring_problem(cams, points, track, seed, row_width=None):
-    """The repo bench's camera-ring BA problem (bench.py _ring_problem),
-    built with the port; with `row_width` every track is split into rows of
-    that width (sorted point_rows, the PCG solver's cached path)."""
-    from monocularsfm_torch.geometry import angle_axis_to_matrix
-    from monocularsfm_torch.optim import make_bundle_problem
-    from monocularsfm_torch.utils.synthetic import camera_ring_scene
-
-    scene = camera_ring_scene(num_cameras=cams, num_points=points,
-                              noise_px=0.5, seed=seed)
-    rng = np.random.default_rng(0)
-    vis = scene.visible.T
-    keys = rng.random(vis.shape) + np.where(vis, 0.0, 10.0)
-    order = np.argpartition(keys, min(track, vis.shape[1] - 1), axis=1)
-    obs_cam = order[:, :track].astype(np.int32)
-    obs_valid = np.take_along_axis(vis, order[:, :track], axis=1)
-    obs_uv = scene.observations[obs_cam, np.arange(points)[:, None]]
-    aa = torch.from_numpy(rng.normal(scale=0.01, size=(cams, 3))).float()
-    R = np.einsum("cij,cjk->cik", angle_axis_to_matrix(aa).double().numpy(),
-                  scene.R)
-    t = scene.t + rng.normal(scale=0.02, size=(cams, 3))
-    X = scene.points + rng.normal(scale=0.02, size=scene.points.shape)
-    K4 = [scene.K[0, 0], scene.K[1, 1], scene.K[0, 2], scene.K[1, 2]]
-    const = np.arange(cams) == 0
-    nobs = int(obs_valid.sum())
-    if row_width is None:
-        return make_bundle_problem(K4, R, t, X, obs_cam, obs_uv, obs_valid,
-                                   const), nobs
-    nrow = -(-track // row_width)
-    return make_bundle_problem(
-        K4, R, t, X, obs_cam.reshape(-1, row_width),
-        obs_uv.reshape(-1, row_width, 2), obs_valid.reshape(-1, row_width),
-        const, point_valid=obs_valid.any(1),
-        point_rows=np.repeat(np.arange(points), nrow)), nobs
-
-
 def timed_ba(prob, dev, **kw):
     """(result, wall seconds) of one bundle_adjust on `dev`."""
     from monocularsfm_torch.optim import bundle_adjust
@@ -480,6 +467,7 @@ def timed_ba(prob, dev, **kw):
 
 def phase_ba_dense(dev):
     from monocularsfm_torch.optim import bundle_adjust
+    from monocularsfm_torch.utils.ring_problem import ring_problem
 
     t0 = time.perf_counter()
     prob, nobs = ring_problem(BA_CAMS, BA_POINTS, BA_TRACK, seed=2)
@@ -509,6 +497,8 @@ def phase_ba_dense(dev):
 
 
 def phase_ba_pcg(dev, dense_rmse):
+    from monocularsfm_torch.utils.ring_problem import ring_problem
+
     t0 = time.perf_counter()
     prob, nobs = ring_problem(PCG_CAMS, PCG_POINTS, PCG_TRACK, seed=3, row_width=3)
     gpu = prob.to(dev)
@@ -539,7 +529,29 @@ def phase_ba_pcg(dev, dense_rmse):
             "ba_pcg_vs_dense_rmse_diff": diff}
 
 
-def phase_reconstruct(dev, views):
+def copy_features(src, dst, names):
+    """A database at `dst` with the images `names` of `src`: their
+    keypoints, colours and descriptors, and no matches."""
+    from monocularsfm_torch.database import Database
+
+    a, b = Database(src), Database(dst)
+    try:
+        ids = {n: i for i, n in a.read_all_images().items()}
+        for n in names:
+            i, j = ids[n], b.write_image(n)
+            b.write_keypoints(j, a.read_keypoints(i))
+            b.write_descriptors(j, a.read_descriptors(i))
+            colors = a.read_keypoints_color(i)
+            if colors is not None:
+                b.write_keypoints_color(j, colors)
+    finally:
+        a.close()
+        b.close()
+
+
+def phase_reconstruct(dev, views, keep_db=None):
+    """The pipeline on `views` rendered views; with `keep_db`, the features
+    of the first PAR_VIEWS views are copied to a database there."""
     from monocularsfm_torch import cli, native
     from monocularsfm_torch.config import SfMConfig
     from monocularsfm_torch.io.colmap import read_colmap
@@ -590,6 +602,9 @@ def phase_reconstruct(dev, views):
         builder = stage("reconstruct", cli.cmd_reconstruct, cfg, device=dev,
                         log=log, metrics_path=metrics)
         launches = dict(blur.LAUNCHES, **match_kernel.LAUNCHES)
+        if keep_db:
+            copy_features(cfg.database_path, keep_db,
+                          [f"frame{v:04d}.png" for v in range(PAR_VIEWS)])
         with open(metrics) as f:
             gba = [e for e in map(json.loads, f) if e["event"] == "global_ba"]
         if builder.map._native is None:
@@ -1067,6 +1082,196 @@ def phase_3200(dev):
     }
 
 
+def parallel_ba_single(dev):
+    """(a) A world of one NCCL rank in this process: distributed_bundle_adjust
+    against bundle_adjust on the dense headline ring and the scaling
+    table's PCG ring, the same fixed work each.  Returns per problem the
+    unsharded and the sharded rmse_final and LM iterations/s."""
+    import torch.distributed as dist
+
+    from monocularsfm_torch.optim import bundle_adjust
+    from monocularsfm_torch.parallel import distributed_bundle_adjust
+    from monocularsfm_torch.parallel import mesh as PM
+    from monocularsfm_torch.utils.ring_problem import ring_problem
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        PM.init_multi_host(f"file://{tmp}/store", 1, 0, device=dev,
+                           timeout_s=PAR_TIMEOUT)
+        try:
+            backend = dist.get_backend()
+            mesh = PM.make_mesh(1, device=dev)
+            for name, (cams, points, track, seed), kw in PAR_PROBLEMS:
+                prob = ring_problem(cams, points, track, seed=seed)[0].to(dev)
+                bundle_adjust(prob, device=dev, **dict(kw, max_iterations=2))
+                single, dt1 = timed_ba(prob, dev, **kw)
+                distributed_bundle_adjust(prob, mesh, **dict(kw, max_iterations=2))
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                sharded = distributed_bundle_adjust(prob, mesh, **kw)
+                torch.cuda.synchronize()
+                dt2 = time.perf_counter() - t0
+                out[name] = {
+                    "unsharded_rmse_final": float(single["rmse_final"]),
+                    "unsharded_lm_iters_per_s": single["iterations"] / dt1,
+                    "world1_rmse_final": float(sharded["rmse_final"]),
+                    "world1_lm_iters_per_s": sharded["iterations"] / dt2,
+                    "lm_iters": sharded["iterations"]}
+                del prob
+        finally:
+            PM.shutdown()
+    return backend, out
+
+
+def phase_parallel(dev, db16, K):
+    """The multi-device layer on the one card: (a) distributed BA as a world
+    of one NCCL rank in this process, and (b) as two gloo ranks sharing the
+    card, each within PAR_RMSE_TOL of the unsharded solve on the dense and
+    the PCG ring, with the ranks' time inside collectives; (c) pair-sharded
+    matching over the two ranks equal to the single-device kernel's maps,
+    and (d) the ring all-pairs matching equal to the direct per-pair
+    matches, match_tile launched on each rank; (e) the dry run, then
+    `sfm-torch match` + `reconstruct` under two ranks on PAR_VIEWS views."""
+    from monocularsfm_torch.ops.matching import match_pairs_batch, matches_to_pairs
+    from monocularsfm_torch.parallel.dryrun import dryrun_multichip
+    from monocularsfm_torch.parallel.mesh import spawn
+
+    res = {}
+    backend1, res["world1"] = parallel_ba_single(dev)
+    log(f"[parallel] (a) world of one, backend {backend1}: {res['world1']}")
+    if backend1 != "nccl":
+        fail(f"a world of one on the card chose {backend1}, not nccl")
+
+    bank, mask, _ = match_bank(dev)
+    bank, mask = bank[:PAR_MATCH_IMAGES], mask[:PAR_MATCH_IMAGES]
+    n = PAR_MATCH_IMAGES
+    pairs = np.array([[i, j] for i in range(n) for j in range(i + 1, n)], np.int32)
+    ref = match_pairs_batch(bank, mask, pairs).cpu().numpy()
+    host_bank = bank.float().cpu().numpy()
+    host_mask = mask.cpu().numpy()
+    step = "monocularsfm_torch.parallel.dryrun:"
+    t0 = time.perf_counter()
+    ranks = spawn(2, [(step + "ring_ba", (*shape, dev), kw)
+                      for _, shape, kw in PAR_PROBLEMS] + [
+        (step + "match", (host_bank, host_mask, pairs, dev), {}),
+        (step + "ring", (host_bank, host_mask, dev),
+         dict(cross_check=True, max_matches=MATCH_CAP)),
+    ], device=dev, timeout=PAR_TIMEOUT)
+    res["gloo2_wall_s"] = time.perf_counter() - t0
+    for k, (name, _, _) in enumerate(PAR_PROBLEMS):
+        r = ranks[0][k]
+        res[name] = {
+            "gloo2_rmse_final": r["rmse_final"], "gloo2_backend": r["backend"],
+            "gloo2_lm_iters_per_s": r["iterations"] / r["wall_s"],
+            "gloo2_wall_s": r["wall_s"], "gloo2_lm_iters": r["iterations"],
+            "gloo2_collective_s": [rk[k]["collective_s"] for rk in ranks],
+            "gloo2_collective_calls": r["collective_calls"],
+            "gloo2_collective_bytes": r["collective_bytes"],
+            **res["world1"][name]}
+        r = res[name]
+        r["gloo2_collective_share"] = max(r["gloo2_collective_s"]) / r["gloo2_wall_s"]
+        log(f"[parallel] (a, b) {name}: {r}")
+        for key in ("world1_rmse_final", "gloo2_rmse_final"):
+            if not abs(r[key] - r["unsharded_rmse_final"]) <= PAR_RMSE_TOL:
+                fail(f"sharded BA {name}: {key} {r[key]} against unsharded "
+                     f"{r['unsharded_rmse_final']} (tol {PAR_RMSE_TOL} px)")
+        if r["gloo2_backend"] != "gloo":
+            fail(f"two ranks on one card chose {r['gloo2_backend']}")
+    n_ba = len(PAR_PROBLEMS)
+    launches = {"sharded_match_pairs": [rk[n_ba]["launches"] for rk in ranks],
+                "ring_all_pairs_matching": [rk[n_ba + 1]["launches"] for rk in ranks]}
+    same = all(np.array_equal(rk[n_ba]["idx"], ref) for rk in ranks)
+    direct = {(int(a), int(b)): np.stack(matches_to_pairs(ref[p]), 1)
+              for p, (a, b) in enumerate(pairs)}
+    ring = ranks[0][n_ba + 1]["pairs"]
+    ring_same = (ring.keys() == {k for k, v in direct.items() if len(v)}
+                 and all(np.array_equal(ring[k], direct[k]) for k in ring))
+    log(f"[parallel] (c) sharded_match_pairs over 2 ranks, {len(pairs)} pairs at "
+        f"capacity {MATCH_CAP}: equal to the single-device kernel {same}; "
+        f"(d) ring, cross-check: {len(ring)} pairs equal to the direct "
+        f"matches {ring_same}; match_tile launches per rank {launches}")
+    if not (same and ring_same):
+        fail(f"sharded matching differs from the kernel: pairs {same}, ring {ring_same}")
+    if not all(c > 0 for v in launches.values() for c in v):
+        fail(f"match_tile was not launched on every rank: {launches}")
+    res["match_launches"] = launches
+
+    t0 = time.perf_counter()
+    dry = dryrun_multichip(2, device=dev, timeout=PAR_TIMEOUT)
+    res["dryrun_s"] = time.perf_counter() - t0
+    res["dryrun_registered"] = dry["num_registered"]
+    log(f"[parallel] (e) dryrun_multichip(2) in {res['dryrun_s']:.1f}s: "
+        f"{dry['num_registered']} registered, global BAs (cams, solver, "
+        f"sharded) {[(e['cams'], e['solver'], e['sharded']) for e in dry['events'] if e['event'] == 'global_ba']}")
+    res["cli"] = parallel_cli(db16, K)
+    return res
+
+
+def parallel_cli(db16, K):
+    """`sfm-torch match` and `reconstruct` under torch.distributed.run with
+    two ranks on the card, on a copy of the 16-view feature database."""
+    import shutil
+    import subprocess
+
+    from monocularsfm_torch.database import Database
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as tmp:
+        db = os.path.join(tmp, "par.db")
+        shutil.copy(db16, db)
+        cfg = os.path.join(tmp, "par.yaml")
+        with open(cfg, "w") as f:
+            f.write(f"database_path: {db}\noutput_path: {tmp}/out\n"
+                    f"images_path: {tmp}/images\n"
+                    f"camera: {{fx: {float(K[0, 0])}, fy: {float(K[1, 1])}, "
+                    f"cx: {float(K[0, 2])}, cy: {float(K[1, 2])}}}\n"
+                    "matching: {match_type: sequential, overlap: 12}\n"
+                    f"bundle: {{dense_max_images: {PAR_DENSE_MAX}}}\n")
+        metrics = os.path.join(tmp, "events.jsonl")
+        walls = {}
+        for stage, extra in (("match", []), ("reconstruct", ["--metrics", metrics])):
+            t0 = time.perf_counter()
+            r = subprocess.run(
+                [sys.executable, "-m", "torch.distributed.run", "--standalone",
+                 "--nproc-per-node", "2", "-m", "monocularsfm_torch.cli", stage,
+                 cfg, *extra], cwd=root, capture_output=True, text=True,
+                timeout=PAR_TIMEOUT)
+            walls[stage] = time.perf_counter() - t0
+            log(f"[parallel] sfm-torch {stage} under 2 ranks: rc {r.returncode} "
+                f"in {walls[stage]:.1f}s")
+            if r.returncode != 0:
+                errors = [line for line in r.stderr.splitlines()
+                          if "Error" in line or "error" in line]
+                fail(f"sfm-torch {stage} under 2 ranks: {r.stdout[-2000:]}"
+                     + "\n".join(errors[-40:]) + r.stderr[-3000:])
+        backends = sorted({line.split("backend ")[1].split()[0]
+                           for line in r.stderr.splitlines() if "backend " in line})
+        with open(metrics) as f:
+            gba = [e for e in map(json.loads, f) if e["event"] == "global_ba"]
+        summary = [line for line in r.stdout.splitlines()
+                   if "registered images" in line or "mean reprojection" in line]
+        reg = int(summary[0].split(":")[1])
+        reproj = float(summary[1].split(":")[1].split()[0])
+        d = Database(db)
+        try:
+            pairs = sum(1 for m in d.read_all_matches().values() if len(m))
+        finally:
+            d.close()
+    sharded = [(e["cams"], e["solver"]) for e in gba if e["sharded"]]
+    log(f"[parallel] sfm-torch match + reconstruct, 2 ranks ({backends}): {pairs} "
+        f"verified pairs, {reg}/{PAR_VIEWS} registered, mean reproj {reproj:.5f} "
+        f"px, sharded global BAs (cams, solver) {sharded}")
+    if backends != ["gloo"]:
+        fail(f"sfm-torch under 2 ranks on one card chose {backends}")
+    if not (reg >= PAR_MIN_REG and reproj < MP_REPROJ_MAX and sharded
+            and any(sv == "pcg" for _, sv in sharded)):
+        fail(f"sfm-torch under 2 ranks: {reg} registered, {reproj} px, "
+             f"global BAs {gba}")
+    return {"views": PAR_VIEWS, "registered": reg, "mean_reproj_px": reproj,
+            "verified_pairs": pairs, "sharded_global_ba": sharded,
+            "stage_s": walls}
+
+
 def main():
     dev = "cuda"
     smi = phase_device()
@@ -1088,13 +1293,19 @@ def main():
 
     rates = walled("ba_dense", phase_ba_dense, dev)
     rates.update(walled("ba_pcg", phase_ba_pcg, dev, rates["ba_dense_rmse_final"]))
-    renders, launches, quality = walled("pipeline", phase_reconstruct, dev, MP_VIEWS)
+    par_tmp = tempfile.TemporaryDirectory()
+    db16 = os.path.join(par_tmp.name, "features16.db")
+    renders, launches, quality = walled("pipeline", phase_reconstruct, dev,
+                                        MP_VIEWS, db16)
     rates.update(quality)
     launches_alt, rates["pipeline_alt"] = walled("pipeline_alt", phase_pipeline_alt,
                                                  dev, renders)
+    K_mp = renders[1]
     del renders
     rates["pnp"] = walled("pnp", phase_pnp, dev)
     blur_3200, launches_3200, rates["size_3200"] = walled("size_3200", phase_3200, dev)
+    rates["parallel"] = walled("parallel", phase_parallel, dev, db16, K_mp)
+    par_tmp.cleanup()
     rates["phase_wall_s"] = walls
 
     _, err, pair_equal, t = blur_rows[1]  # the octave stack dominates
@@ -1140,6 +1351,7 @@ def main():
               tm["library"], index_agreement=agree,
               match_stats_whole_ms=tm["whole"],
               library_is="bf16 torch.bmm of the product alone, not the same function",
+              launches_parallel=rates["parallel"]["match_launches"],
               shape={"pairs": MATCH_IMAGES, "capacity": MATCH_CAP}),
     ]
     print(smi)

@@ -3,17 +3,32 @@
     sfm-torch extract       <config.yaml> [--device cuda]   images -> features
     sfm-torch match         <config.yaml> [--device cuda]   features -> matches
     sfm-torch check-matches <config.yaml> [--render-dir D]  per-pair statistics
-    sfm-torch reconstruct   <config.yaml> [--device cuda]   matches -> model + exports
-    sfm-torch pipeline      <config.yaml> [--device cuda]   all of the above in order
+    sfm-torch reconstruct   <config.yaml> [--device cuda] [--metrics F]
+                                                  matches -> model + exports
+    sfm-torch pipeline      <config.yaml> [--device cuda] [--metrics F]
+                                                  all of the above in order
+
+`--metrics F` writes the build's JSON-lines event log (register and
+global_ba events; `sharded` says whether a global BA ran over the ranks).
 
 The SQLite database is the only interface between stages, as in the JAX
 package's `sfm` CLI, so a database written by one package's stage can be
 read by the other's next stage.  A CUDA device without a visible GPU raises.
+
+Under `torchrun` (WORLD_SIZE > 1) every rank joins one process group
+(NCCL when each rank has a card of its own, gloo otherwise); rank 0 runs
+the subcommand, and the others serve its sharded calls (pair-sharded
+matching, landmark-sharded global BA) until it is done.  Extraction stays
+on rank 0's device.  `--device cuda` means cuda:{LOCAL_RANK % cards}.
+
+    python -m torch.distributed.run --standalone --nproc-per-node 2 \
+        -m monocularsfm_torch.cli reconstruct <config.yaml>
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import pathlib
 import sys
 import time
@@ -44,7 +59,7 @@ def cmd_match(cfg, device="cuda", log=print):
         "sequential": SequentialFeatureMatcher,
         "vocab": VocabTreeFeatureMatcher,
     }.get(cfg.matching.match_type, BruteFeatureMatcher)
-    n = cls(cfg.matching, device=device).run_matching(
+    n = cls(cfg.matching, parallel=cfg.parallel, device=device).run_matching(
         cfg.database_path, log=log)
     log(f"[match] wrote {n} pairs in {time.perf_counter()-t0:.1f}s")
     return n
@@ -173,27 +188,41 @@ def main(argv=None):
         else:
             p.add_argument("--device", default="cuda",
                            help="torch device of the stage (default: cuda)")
+        if name in ("reconstruct", "pipeline"):
+            p.add_argument("--metrics", default=None,
+                           help="write the build's JSON-lines event log here")
     args = parser.parse_args(argv)
 
     from monocularsfm_torch.config import load_yaml
 
     cfg = load_yaml(args.config)
-    if args.command != "check-matches":
-        from monocularsfm_torch.reconstruction.map_builder import resolve_device
+    if args.command == "check-matches":
+        if int(os.environ.get("RANK", "0")) == 0:
+            cmd_check_matches(cfg, render_dir=args.render_dir)
+        return 0
+    from monocularsfm_torch.reconstruction.map_builder import resolve_device
 
-        resolve_device(args.device)
-    if args.command == "extract":
-        cmd_extract(cfg, device=args.device)
-    elif args.command == "match":
-        cmd_match(cfg, device=args.device)
-    elif args.command == "check-matches":
-        cmd_check_matches(cfg, render_dir=args.render_dir)
-    elif args.command == "reconstruct":
-        cmd_reconstruct(cfg, device=args.device)
-    elif args.command == "pipeline":
-        cmd_extract(cfg, device=args.device)
-        cmd_match(cfg, device=args.device)
-        cmd_reconstruct(cfg, device=args.device)
+    resolve_device(args.device)
+
+    def run(device):
+        if args.command in ("extract", "pipeline"):
+            cmd_extract(cfg, device=device)
+        if args.command in ("match", "pipeline"):
+            cmd_match(cfg, device=device)
+        if args.command in ("reconstruct", "pipeline"):
+            cmd_reconstruct(cfg, device=device, metrics_path=args.metrics)
+
+    if int(os.environ.get("WORLD_SIZE", "1")) == 1:
+        run(args.device)
+        return 0
+    from monocularsfm_torch.parallel import mesh, serve
+
+    mesh.init_multi_host(device=args.device)
+    try:
+        serve.run_controller(run, mesh.rank_device(args.device),
+                             device=args.device)
+    finally:
+        mesh.shutdown()
     return 0
 
 

@@ -6,8 +6,9 @@ distance filter -> F-RANSAC verification -> WriteMatches :10-73; sequential
 :75-100; brute with the optional VisualSFM preemptive filter :102-178).
 Descriptors live in a device-resident bf16 bank; the host decides which
 pairs to run (sequential, brute, or retrieved through a visual vocabulary),
-each batch of pairs is one `match_pairs_batch` call (kernel 3 on the card),
-and geometric verification is hypothesis-parallel F-RANSAC whose uniform
+each batch of pairs is one `match_pairs_batch` call (kernel 3 on the card;
+with a ParallelConfig under a process group, the batch is sharded over the
+ranks, `pair_batch` pairs each), and geometric verification is hypothesis-parallel F-RANSAC whose uniform
 draws come from the matcher's own torch.Generator.  The "opencv" backend is
 the reference's own per-pair cv2 loop on an f32 host bank (cv2 is imported
 only when that backend runs).
@@ -35,12 +36,37 @@ def _pad_pow2(n: int, minimum: int = 1024) -> int:
 
 
 class _MatcherBase:
-    def __init__(self, config: MatchingConfig | None = None, device="cuda"):
+    def __init__(self, config: MatchingConfig | None = None, parallel=None,
+                 device="cuda"):
         self.cfg = config or MatchingConfig()
         if self.cfg.backend not in ("jax", "opencv"):
             raise ValueError(f"unknown matching backend {self.cfg.backend!r}")
+        self.par = parallel  # ParallelConfig | None: pair-sharded dispatch
+        self._mesh = None    # lazy; False = resolved unavailable
         self.device = torch.device(device)
         self._gen = torch.Generator(self.device).manual_seed(1234)
+
+    def _match_mesh(self):
+        """Mesh of ranks for pair-sharded matching (None = one device: no
+        ParallelConfig, sharding off, no process group, or a world of one
+        that no `mesh_shape` asks for)."""
+        if self.par is None or not self.par.shard_matching:
+            return None
+        if self._mesh is None:
+            from monocularsfm_torch.parallel import serve
+
+            self._mesh = serve.controller_mesh(self.par, self.device) or False
+        return self._mesh or None
+
+    def _dispatch_match(self, bank, mask, ids, mesh, **kw):
+        """One matching call: pair-sharded over the serving ranks when a
+        mesh is present (ids then number a multiple of the mesh size), on
+        this device otherwise."""
+        if mesh is not None:
+            from monocularsfm_torch.parallel import serve
+
+            return serve.match_pairs(bank, mask, ids, mesh, **kw)
+        return match_pairs_batch(bank, mask, ids, **kw)
 
     # -- descriptor bank -----------------------------------------------------
     @staticmethod
@@ -205,7 +231,9 @@ class _MatcherBase:
                 db, bank, mask, kps, image_ids, pairs, log)
         row_of = {i: r for r, i in enumerate(image_ids)}
         written = 0
-        B = self.cfg.pair_batch
+        mesh = self._match_mesh()
+        # With a mesh each rank matches `pair_batch` pairs per call.
+        B = self.cfg.pair_batch * (mesh.size() if mesh is not None else 1)
         for start in range(0, len(pairs), B):
             chunk = [
                 (a, b) for a, b in pairs[start : start + B]
@@ -216,8 +244,8 @@ class _MatcherBase:
             # Pad the chunk to the fixed batch width.
             padded = chunk + [chunk[-1]] * (B - len(chunk))
             ids = [[row_of[a], row_of[b]] for a, b in padded]
-            idx_b = match_pairs_batch(
-                bank, mask, ids,
+            idx_b = self._dispatch_match(
+                bank, mask, ids, mesh,
                 ratio=self.cfg.distance_ratio,
                 max_distance=self.cfg.max_distance,
                 cross_check=self.cfg.cross_check,

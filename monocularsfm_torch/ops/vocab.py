@@ -46,7 +46,7 @@ def _kmeans_fit(desc: torch.Tensor, init_idx: torch.Tensor, num_words: int,
 
 def train_visual_vocab(descriptors, num_words: int = 4096, iterations: int = 10,
                        max_train: int = 262144, seed: int = 0,
-                       device="cpu") -> torch.Tensor:
+                       device="cuda") -> torch.Tensor:
     """Train a K-word visual vocabulary from (N, 128) unit-L2 descriptors
     (a host array).  The subsample and the initial words come from
     np.random.default_rng(seed) as in the JAX package, so both start from

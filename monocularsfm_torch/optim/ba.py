@@ -28,6 +28,14 @@ Same algorithm as the reference, written as plain tensor code:
   reference runs it, and CG, as device while-loops; here the host reads
   the LM exit flag once per LM iteration and the CG exit test once per CG
   step (one device sync each), so iteration counts follow the same rules.
+* With a process `group` the solve is SPMD over a landmark-sharded problem
+  (parallel/distributed_ba.py): each rank holds a slab of points and their
+  observations, the cameras are replicated, and the camera-side sums (U,
+  g_c, the Schur system and its rhs, every cost, the predicted reduction)
+  are all-reduced over the group, as the reference's psum sites do.  The
+  replicated camera solve then runs identically on every rank, the point
+  back-substitution stays local, and every branch (LM accept, stop, the CG
+  test) reads only reduced or replicated values, so the ranks stay in step.
 """
 
 from __future__ import annotations
@@ -174,8 +182,13 @@ def bundle_adjust(
     min_lm_diagonal: float = 1e-6,
     max_lm_diagonal: float = 1e32,
     pcg_rtol: float = 1e-2,
+    group=None,
 ) -> dict[str, Any]:
     """Run LM on `device` (default: where the problem lies).
+
+    With `group` (a torch.distributed process group) every rank of it calls
+    this with its slab of points and the same cameras; the results hold the
+    rank's slab of X and the replicated rest.
 
     Returns a dict of R, t, X, K, cost_initial, cost_final, rmse_initial,
     rmse_final (per residual component), mean_reproj_error (per
@@ -187,6 +200,8 @@ def bundle_adjust(
     if refine_focal and solve_mode != "dense":
         raise ValueError("refine_focal requires solve_mode='dense'")
     rows = prob.point_rows
+    if rows is not None and group is not None:
+        raise ValueError("distributed BA requires the identity point_rows map")
     if rows is not None and solve_mode == "dense":
         raise ValueError(
             "dense Schur requires the identity point_rows map (one row per "
@@ -198,6 +213,20 @@ def bundle_adjust(
 
     f32 = torch.float32
     dev = prob.R.device
+    if group is None:
+        def psum(*ts):
+            return ts
+
+        def pmax(t):
+            return t
+    else:
+        from monocularsfm_torch.parallel.mesh import all_reduce, all_reduce_sum
+
+        def psum(*ts):
+            return all_reduce_sum(ts, group)
+
+        def pmax(t):
+            return all_reduce(t, "max", group)
     C = prob.R.shape[0]
     P, T = prob.obs_cam.shape      # observation-row capacity, track width
     Pn = prob.X.shape[0]           # point capacity (== P when rows is None)
@@ -212,7 +241,7 @@ def bundle_adjust(
            & prob.cam_valid[cam_all]).nonzero()[:, 0]     # (O,)
     cam_o, pt_o = cam_all[obs], pt_all[obs]
     uv_o = prob.obs_uv.reshape(-1, 2)[obs]
-    num_res = torch.tensor(float(obs.numel()), device=dev)
+    num_res = torch.tensor(float(obs.numel()), device=dev)  # this rank's
     free_cam = (prob.cam_valid & ~prob.cam_const).to(f32)  # (C,)
     pin = ~(prob.cam_valid & ~prob.cam_const)
     pv = prob.point_valid.to(f32)
@@ -238,6 +267,7 @@ def bundle_adjust(
         return torch.stack([ru, rv], -1), q, p, zs, R_o
 
     def cost_of(K, R, t, X):
+        """This rank's part of the cost (all of it without a group)."""
         r = project(K, R, t, X)[0]
         return 0.5 * (r * r).sum()
 
@@ -267,8 +297,10 @@ def bundle_adjust(
         return U_d, V_d
 
     def gradient_inf(g_c, g_p):
+        """Max-norm of the gradient: g_c is already reduced, the point
+        side is the max over the ranks' slabs."""
         return torch.maximum((g_c * free_cam[:, None]).abs().max(),
-                             (g_p * pv[:, None]).abs().max())
+                             pmax((g_p * pv[:, None]).abs().max()))
 
     def apply_step(R, t, X, dc, dp):
         return (angle_axis_to_matrix(dc[:, :3]) @ R, t + dc[:, 3:], X + dp)
@@ -279,7 +311,7 @@ def bundle_adjust(
     def dense_solve(U_d, Vinv, W, g_c, g_p, focal, lam):
         """Build S and its rhs densely (chunked one-hot matmul) and solve."""
         Y = _mm(W, Vinv[pt_o])                               # (O, 6, 3)
-        rhs = g_c - to_cams(_mv(Y, g_p[pt_o]))               # (C, 6)
+        Ygp = to_cams(_mv(Y, g_p[pt_o]))                     # (C, 6)
 
         def rows_of(B):    # back to the (P, T) layout, zero blocks at padding
             return torch.zeros((P * T, 6, 3), dtype=f32, device=dev).index_copy_(
@@ -293,19 +325,26 @@ def bundle_adjust(
             Yg = torch.einsum("ptc,ptij->cipj", oh, Yr[s:s + chunk])
             Wg = torch.einsum("ptc,ptij->cipj", oh, Wr[s:s + chunk])
             S -= Yg.reshape(C * 6, n * 3) @ Wg.reshape(C * 6, n * 3).T
-        S4 = S.view(C, 6, C, 6)
-        ci = torch.arange(C, device=dev)
-        S4[ci, :, ci, :] = S4[ci, :, ci, :] + U_d
         if focal is not None:
             Jf, U_ff, U_cf, g_f, Wf_sum = focal
             # Schur-reduce the shared-focal columns against the point blocks.
             VinvWfT = _mm(Vinv, Wf_sum.transpose(-1, -2))    # (Pn, 3, 2)
-            S_ff = U_ff - torch.einsum("pij,pjk->ik", Wf_sum, VinvWfT)
+            Ygp, S, Wff, Wcf, Wgf = psum(
+                Ygp, S, torch.einsum("pij,pjk->ik", Wf_sum, VinvWfT),
+                to_cams(_mm(Y, Wf_sum[pt_o].transpose(-1, -2))),   # (C, 6, 2)
+                _mv(_mm(Wf_sum, Vinv), g_p).sum(0))
+        else:
+            Ygp, S = psum(Ygp, S)
+        rhs = g_c - Ygp
+        S4 = S.view(C, 6, C, 6)
+        ci = torch.arange(C, device=dev)
+        S4[ci, :, ci, :] = S4[ci, :, ci, :] + U_d
+        if focal is not None:
+            S_ff = U_ff - Wff
             dff = torch.clamp(torch.diagonal(S_ff), min_lm_diagonal, max_lm_diagonal)
             S_ff = S_ff + torch.diag(lam * dff)
-            S_cf = U_cf - to_cams(_mm(Y, Wf_sum[pt_o].transpose(-1, -2)))  # (C, 6, 2)
-            rhs_f = g_f - _mv(_mm(Wf_sum, Vinv), g_p).sum(0)
-            S_cf = S_cf.reshape(C * 6, 2)
+            S_cf = (U_cf - Wcf).reshape(C * 6, 2)
+            rhs_f = g_f - Wgf
             S = torch.cat([torch.cat([S, S_cf], 1),
                            torch.cat([S_cf.T, S_ff], 1)], 0)
             rhs = torch.cat([rhs.reshape(-1), rhs_f])
@@ -341,7 +380,10 @@ def bundle_adjust(
             U_cf = to_cams(_tmm(Jc, Jf))
             g_f = -torch.einsum("oki,ok->i", Jf, r)
             Wf_sum = to_points(_tmm(Jf, Jp))                   # (Pn, 2, 3)
+            cost, U, g_c, U_ff, U_cf, g_f = psum(cost, U, g_c, U_ff, U_cf, g_f)
             focal = (Jf, U_ff, U_cf, g_f, Wf_sum)
+        else:
+            cost, U, g_c = psum(cost, U, g_c)
         g_inf = gradient_inf(g_c, g_p)
         U_d, V_d = damp(U, V, lam)
         Vinv = _inv3x3(V_d)
@@ -355,14 +397,16 @@ def bundle_adjust(
         Jdx = _mv(Jc, dc[cam_o]) + _mv(Jp, dp[pt_o])
         if focal is not None:
             Jdx = Jdx + _mv(focal[0], df)
-        pred = -(r * Jdx).sum() - 0.5 * (Jdx * Jdx).sum()
         R_new, t_new, X_new = apply_step(R, t, X, dc, dp)
-        step_sq = (dc * dc).sum() + (dp * dp).sum()
         K_new = K
         if focal is not None:
             K_new = K + torch.cat([df, torch.zeros_like(df)])
+        pred, new_cost, dp_sq = psum(
+            -(r * Jdx).sum() - 0.5 * (Jdx * Jdx).sum(),
+            cost_of(K_new, R_new, t_new, X_new), (dp * dp).sum())
+        step_sq = (dc * dc).sum() + dp_sq     # dc is replicated, dp sharded
+        if focal is not None:
             step_sq = step_sq + (df * df).sum()
-        new_cost = cost_of(K_new, R_new, t_new, X_new)
         return cost, new_cost, pred, K_new, R_new, t_new, X_new, step_sq, g_inf, 0
 
     def try_step_pcg(K, R, t, X, lam):
@@ -374,6 +418,7 @@ def bundle_adjust(
         g_p = to_points(-_mv(Jp.transpose(-1, -2), r))
         W = _tmm(Jc, Jp)                                       # cached (O, 6, 3)
         del Jc, Jp
+        cost, U, g_c = psum(cost, U, g_c)
         g_inf = gradient_inf(g_c, g_p)
         U_d, V_d = damp(U, V, lam)
         Vi = _inv3x3(V_d)
@@ -386,9 +431,10 @@ def bundle_adjust(
             return to_cams(_mv(W, y[pt_o]))
 
         def S_mul(x):
-            return _mv(U_d, x) - Wy_cams(_mv(Vi, WT_pts(x)))
+            # U_d x is replicated: only the point-sharded term is reduced.
+            return _mv(U_d, x) - psum(Wy_cams(_mv(Vi, WT_pts(x))))[0]
 
-        rhs = g_c - Wy_cams(_mv(Vi, g_p))
+        rhs = g_c - psum(Wy_cams(_mv(Vi, g_p)))[0]
         x = torch.zeros_like(rhs)
         res = rhs
         z = _mv(Uinv, res)
@@ -410,19 +456,20 @@ def bundle_adjust(
         dp = _mv(Vi, g_p - WT_pts(dc)) * pv[:, None]
         # Predicted reduction from the cached blocks (g = -J^T r):
         # pred = g.dx - 0.5 dx^T (J^T J) dx, all undamped.
-        s_g = (g_c * dc).sum() + (g_p * dp).sum()
-        s_u = (dc * _mv(U, dc)).sum()
-        s_w = (dc * Wy_cams(dp)).sum()
-        s_v = (dp * _mv(V, dp)).sum()
-        pred = s_g - 0.5 * (s_u + 2.0 * s_w + s_v)
         R_new, t_new, X_new = apply_step(R, t, X, dc, dp)
-        new_cost = cost_of(K, R_new, t_new, X_new)
-        step_sq = (dc * dc).sum() + (dp * dp).sum()
+        s_gp, s_w, s_v, new_cost, dp_sq = psum(
+            (g_p * dp).sum(), (dc * Wy_cams(dp)).sum(),
+            (dp * _mv(V, dp)).sum(), cost_of(K, R_new, t_new, X_new),
+            (dp * dp).sum())
+        s_g = (g_c * dc).sum() + s_gp
+        s_u = (dc * _mv(U, dc)).sum()
+        pred = s_g - 0.5 * (s_u + 2.0 * s_w + s_v)
+        step_sq = (dc * dc).sum() + dp_sq
         return cost, new_cost, pred, K, R_new, t_new, X_new, step_sq, g_inf, k
 
     try_step = try_step_dense if solve_mode == "dense" else try_step_pcg
     K, R, t, X = prob.K, prob.R, prob.t, prob.X
-    cost0 = cost_of(K, R, t, X)
+    num_res, cost0 = psum(num_res, cost_of(K, R, t, X))
     cost = cost0
     radius = torch.tensor(initial_radius, dtype=f32, device=dev)
     it, done, cg_steps = 0, False, 0
@@ -449,7 +496,7 @@ def bundle_adjust(
         done = bool(f_conv | x_conv | g_conv | stuck)
         it += 1
     denom = torch.clamp(num_res, min=1.0)
-    r_fin = project(K, R, t, X)[0]
+    reproj = psum(torch.linalg.norm(project(K, R, t, X)[0], dim=-1).sum())[0]
     return {
         "R": R,
         "t": t,
@@ -462,7 +509,7 @@ def bundle_adjust(
         "rmse_initial": torch.sqrt(cost0 / denom),
         "rmse_final": torch.sqrt(cost / denom),
         # Mean Euclidean reprojection error per observation.
-        "mean_reproj_error": torch.linalg.norm(r_fin, dim=-1).sum() / denom,
+        "mean_reproj_error": reproj / denom,
         "num_residuals": num_res,
         "radius": radius,
         "converged": done,

@@ -13,8 +13,10 @@ is float64 on the host and hands BA float32 problems, which move to the
 device for the solve.  Around the loop: the async visualization
 (`is_visualization`, viz.py), a torch.profiler Chrome trace of the build
 (`profile_dir`), the JSON-lines event log (`enable_metrics`) and the
-`MONOSFM_DUMP_BA` snapshot of every global-BA problem.  Not ported: sharded
-BA over several devices (`_ba_mesh` returns None).
+`MONOSFM_DUMP_BA` snapshot of every global-BA problem.  Under a process
+group (`parallel.init_multi_host`, `torchrun`) the builder runs on rank 0
+and global BA is landmark-sharded over every rank, which serve it
+(parallel/serve.py).
 """
 
 from __future__ import annotations
@@ -89,6 +91,7 @@ class MapBuilder:
                          "complete_pass", "merge_pass", "total")
         }
         self._last_global_ba_count = 0
+        self._mesh = None    # lazy; False = resolved unavailable
         self._log = print
         # Optional JSON-lines event log (enable_metrics).
         self._metrics_fh = None
@@ -235,9 +238,17 @@ class MapBuilder:
 
     # -- bundle adjustment ----------------------------------------------------
     def _ba_mesh(self):
-        """Device mesh for landmark-sharded BA: none in the torch package
-        until the distributed solver is ported."""
-        return None
+        """Mesh of ranks for landmark-sharded BA (None when sharding is
+        off, there is no process group, or the world is one rank and no
+        `mesh_shape` asks for a mesh of one).  Built lazily, once."""
+        par = self.cfg.parallel
+        if not par.shard_ba:
+            return None
+        if self._mesh is None:
+            from monocularsfm_torch.parallel import serve
+
+            self._mesh = serve.controller_mesh(par, self.device) or False
+        return self._mesh or None
 
     def _solve(self, prob, **kwargs):
         """Bundle-adjust `prob` on the builder's device; the result comes
@@ -301,6 +312,8 @@ class MapBuilder:
             dense = (n_imgs <= bcfg.dense_max_images
                      and est_cap <= bcfg.dense_max_obs)
             mesh = self._ba_mesh()
+            # Landmark-sharded BA needs one row per point, so tracks split
+            # across rows only on the single-device PCG path.
             split = (not dense) and mesh is None
             prob, image_ids, pids = self.map.get_global_ba_data(
                 track_width=bcfg.track_width, allow_split=split
@@ -346,7 +359,14 @@ class MapBuilder:
                 np.savez(dump, **arrs, _kwargs=json.dumps(
                     {k: v for k, v in kwargs.items()
                      if isinstance(v, (int, float, str, bool))}))
-            out = self._solve(prob, **kwargs)
+            if mesh is not None:
+                from monocularsfm_torch.parallel import serve
+
+                out = serve.bundle_adjust(prob, mesh, **kwargs)
+                out = {k: v.cpu() if isinstance(v, torch.Tensor) else v
+                       for k, v in out.items()}
+            else:
+                out = self._solve(prob, **kwargs)
             self.map.update_from_ba(out, image_ids, pids)
             self._last_global_ba_count = len(self.map.registered_ids)
             self._metric(

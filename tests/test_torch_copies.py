@@ -60,11 +60,14 @@ def test_port_never_imports_jax():
         "import monocularsfm_torch.native, monocularsfm_torch.ops.undistort\n"
         "import monocularsfm_torch.ops.vocab, monocularsfm_torch.viz\n"
         "import monocularsfm_torch.utils.debug_draw\n"
-        "import monocularsfm_torch.utils.card\n"
+        "import monocularsfm_torch.utils.card, monocularsfm_torch.utils.ring_problem\n"
+        "import monocularsfm_torch.parallel, monocularsfm_torch.parallel.serve\n"
+        "import monocularsfm_torch.parallel.dryrun\n"
         "from monocularsfm_torch.cli import cmd_reconstruct, cmd_export\n"
         "monocularsfm_torch.native.get_lib()\n"
         "import runpy\n"
-        "for tool in ('scale_run_torch', 'measure_3200_torch', 'profile_sift_torch'):\n"
+        "for tool in ('scale_run_torch', 'measure_3200_torch', 'profile_sift_torch',\n"
+        "             'scaling_table_torch'):\n"
         "    runpy.run_path(f'tools/{tool}.py', run_name='tool')\n"
         "bad = [m for m in sys.modules\n"
         "       if m.split('.')[0] in ('jax', 'jaxlib', 'monocularsfm_tpu')]\n"
@@ -73,6 +76,22 @@ def test_port_never_imports_jax():
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
+
+
+@pytest.mark.parametrize("shape", [(6, 200, 3), (16, 500, 4)])
+def test_ring_problem_equals_bench(shape):
+    """The port's ring problem builder gives bench._ring_problem's arrays
+    exactly (the same seeds; the rotation perturbation in f32 in both)."""
+    sys.path.insert(0, str(REPO))
+    import bench
+    from monocularsfm_torch.utils.ring_problem import ring_problem
+
+    ref, n_ref = bench._ring_problem(*shape)
+    ours, n_ours = ring_problem(*shape)
+    assert n_ours == n_ref
+    for name, v in ours.tensors().items():
+        np.testing.assert_array_equal(v.numpy(), np.asarray(getattr(ref, name)),
+                                      err_msg=name)
 
 
 def _write_png_all_filters(path, img):

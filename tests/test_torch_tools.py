@@ -137,3 +137,30 @@ def test_tool_refuses_cuda_without_a_card(tool, tmp_path):
     assert res.returncode != 0
     assert "torch.cuda.is_available() is false" in res.stderr
     assert not any(tmp_path.iterdir())          # refused before any render
+
+
+def test_scaling_table_host_row_prints_the_jax_keys():
+    """Two gloo ranks on the CPU at a tiny shape: one JSON line with the
+    JAX script's keys, and the collective time of each rank."""
+    res = _run("scaling_table_torch.py", "--mode", "host", "--ranks", 2,
+               "--cams", 8, "--points", 300, timeout=120)
+    assert res.returncode == 0, res.stderr[-3000:]
+    r = _last_json(res.stdout)
+    for key in ("label", "backend", "devices", "processes", "cams", "points",
+                "obs", "lm_iters_per_sec", "rmse_final"):
+        assert key in r, key
+    assert (r["backend"], r["devices"], r["processes"]) == ("gloo", 2, 2)
+    assert (r["cams"], r["points"], r["iterations"]) == (8, 300, 10)
+    assert r["obs"] > 0 and r["lm_iters_per_sec"] > 0 and r["card"] == "cpu"
+    assert 0 < r["rmse_final"] < 0.5
+    assert len(r["collective_s_per_rank"]) == 2
+
+
+def test_scaling_table_card_row_refuses_without_a_card():
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is visible here")
+    res = _run("scaling_table_torch.py", "--mode", "card", "--device", "cuda")
+    assert res.returncode != 0
+    assert "torch.cuda.is_available() is false" in res.stderr

@@ -45,7 +45,8 @@ def vocabs():
     rng = np.random.default_rng(0)
     desc, centers = _clusters(rng)
     j = JV.train_visual_vocab(desc, num_words=64, iterations=8)
-    t = TV.train_visual_vocab(desc, num_words=64, iterations=8).numpy()
+    t = TV.train_visual_vocab(desc, num_words=64, iterations=8,
+                              device="cpu").numpy()
     return desc, centers, j, t
 
 
@@ -58,10 +59,22 @@ def test_kmeans_centroids_match_reference(vocabs):
     np.testing.assert_allclose(np.linalg.norm(t, axis=1), 1.0, atol=1e-5)
     # A collection over max_train: the same subsample in both packages.
     jj = JV.train_visual_vocab(desc, num_words=32, iterations=3, max_train=700, seed=4)
-    tt = TV.train_visual_vocab(desc, num_words=32, iterations=3, max_train=700, seed=4)
+    tt = TV.train_visual_vocab(desc, num_words=32, iterations=3, max_train=700,
+                               seed=4, device="cpu")
     np.testing.assert_allclose(tt.numpy(), jj, atol=CENTROID_TOL)
     with pytest.raises(ValueError, match="training descriptors"):
-        TV.train_visual_vocab(desc[:10], num_words=64)
+        TV.train_visual_vocab(desc[:10], num_words=64, device="cpu")
+
+
+def test_train_defaults_to_the_card():
+    """With no device the vocabulary trains on the card: on a machine
+    without CUDA the descriptors' move to it raises torch's own error
+    rather than training on the host."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default runs there")
+    desc, _ = _clusters(np.random.default_rng(2), k=2, per=40)
+    with pytest.raises((RuntimeError, AssertionError), match="(?i)cuda"):
+        TV.train_visual_vocab(desc, num_words=8, iterations=1)
 
 
 def test_histograms_tfidf_and_retrieval_match_reference(vocabs):
