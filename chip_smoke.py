@@ -14,7 +14,12 @@ stages (`sfm-torch extract`, `match`, `check-matches`) on 8 rendered
 1280x960 images at the default configuration.  Then bundle adjustment on
 the card: the dense Schur solver on a 128-camera / 40k-point ring (against
 the same solve on the CPU) and the PCG solver on a 1024-camera /
-200k-point ring with split tracks.  Then `sfm-torch pipeline` (extract,
+200k-point ring with split tracks.  Then the repo bench's path
+(`phase_bench`): the single-pair matcher (kernel 3 one pair per launch)
+against the plain matcher on the card, the entry point's solve on the
+card against the CPU, and `bench_torch.run_all()` at full shape (dense
+and PCG BA, SIFT on four 1280x960 renders, 64 single-pair matches), whose
+four rates it prints on a line of their own.  Then `sfm-torch pipeline` (extract,
 match, reconstruct, export) on 56 rendered 1280x960 views of a
 multi-plane scene, checked against the true poses, with dense and PCG
 global bundle adjustments (the event log names each one's solver).  Then a second
@@ -115,6 +120,11 @@ PAR_PCG_CAMS, PAR_PCG_POINTS, PAR_PCG_TRACK = 256, 50_000, 6
 PAR_MATCH_IMAGES = 8                 # 28 pairs of match_bank at capacity 8192
 PAR_VIEWS, PAR_MIN_REG, PAR_DENSE_MAX = 16, 15, 8
 PAR_TIMEOUT = 300.0
+# The repo bench's measurements through bench_torch.py (phase_bench): kernel
+# 3 one pair per launch on bench_torch's descriptor banks, and the entry
+# point's solve on the card against the CPU.
+BENCH_PAIRS = 4
+ENTRY_RTOL = 1e-4
 PAR_PROBLEMS = (   # (name, (cams, points, track, seed), solver arguments)
     ("dense", (BA_CAMS, BA_POINTS, BA_TRACK, 2),
      dict(max_iterations=BA_ITERS, **FIXED_WORK)),
@@ -527,6 +537,148 @@ def phase_ba_pcg(dev, dense_rmse):
     return {"ba_pcg_lm_iters_per_s": it / dt, "ba_pcg_lm_iters": it,
             "ba_pcg_cg_steps": cg, "ba_pcg_rmse_final": rmse,
             "ba_pcg_vs_dense_rmse_diff": diff}
+
+
+def _pair_unchecked(a, b, ma, mb, pair01):
+    """match_descriptors_pair_auto without match_tile_partials' input checks
+    (whose pair_ids range test waits for the card twice per call): the same
+    bank, launch, merge and decision."""
+    from monocularsfm_torch.ops import match_kernel
+    from monocularsfm_torch.ops.matching import _decide
+
+    bank = torch.stack([a.to(torch.bfloat16), b.to(torch.bfloat16)])
+    N, G = bank.shape[1], bank.shape[1] // match_kernel.TILE
+    f32 = dict(device=bank.device, dtype=torch.float32)
+    i32 = dict(device=bank.device, dtype=torch.int32)
+    rows = (torch.empty((1, N), **f32), torch.empty((1, N), **i32),
+            torch.empty((1, N), **f32))
+    cols = (torch.empty((1, G, N), **f32), torch.empty((1, G, N), **i32),
+            torch.empty((1, G, N), **f32))
+    match_kernel.launch(bank, torch.stack([ma, mb]), pair01, rows, cols)
+    stats = rows + match_kernel._merge_partials(*cols)
+    return _decide(ma[None], stats, 0.8, 0.7, True)[0]
+
+
+def phase_bench(dev):
+    """The repo bench's path through the port: (a) the single-pair matcher
+    (kernel 3 at P = 1) against the plain matcher on the card on BENCH_PAIRS
+    pairs of bench_torch's banks at capacity 8192, and its six statistics
+    against the plain ones; (b) `entry("cuda")`'s solve against
+    `entry("cpu")`'s; (c) `bench_torch.run_all()` at full shape on the
+    card (no CPU baselines), its kernels counted; (d) kernel 3 at P = 1
+    timed beside its bound, plain version and the bf16 product, and the
+    whole call with and without the input checks' host waits."""
+    import bench_torch
+    from monocularsfm_torch import entry as E
+    from monocularsfm_torch.ops import blur, match_kernel
+    from monocularsfm_torch.ops.matching import (
+        match_descriptors_pair,
+        match_descriptors_pair_auto,
+    )
+    from monocularsfm_torch.ops.sift import SIFT
+    from monocularsfm_torch.utils import roofline
+
+    if bench_torch.SMOKE or bench_torch.MATCH_CAP != MATCH_CAP:
+        fail("BENCH_SMOKE is set: phase_bench runs the bench at full shape")
+    descs = [torch.from_numpy(d).to(dev) for d in bench_torch._match_bank()]
+    mask = torch.ones(MATCH_CAP, dtype=torch.bool, device=dev)
+    agree, matched = [], []
+    for r in range(BENCH_PAIRS):
+        a, b = descs[r % 8], descs[(r + 1) % 8]
+        k = match_descriptors_pair_auto(a, b, mask, mask)
+        p = match_descriptors_pair(a, b, mask, mask)
+        agree.append((k == p).float().mean().item())
+        matched.append((k >= 0).float().mean().item())
+    bank = torch.stack(descs[:2]).to(torch.bfloat16)
+    mask2 = torch.ones((2, MATCH_CAP), dtype=torch.bool, device=dev)
+    pair01 = torch.tensor([[0, 1]], dtype=torch.int32, device=dev)
+    sk = match_kernel.match_stats(bank, mask2, pair01)
+    sp = match_kernel.match_stats_plain_batch(bank, mask2, pair01)
+    sim_err = max((x - y).abs().max().item()
+                  for x, y in zip(sk, sp) if x.dtype == torch.float32)
+    arg_agree = min((sk[i] == sp[i]).float().mean().item() for i in (1, 4))
+    same = (_pair_unchecked(descs[0], descs[1], mask, mask, pair01)
+            == match_descriptors_pair_auto(descs[0], descs[1], mask, mask)).all().item()
+    log(f"[bench] (a) single pair, cap {MATCH_CAP}: idx agreement with plain "
+        f"{agree}, matched share {matched}; statistics sim err {sim_err:.3g}, "
+        f"argmax agreement {arg_agree:.6f}; unchecked call equal {same}")
+    if not (min(agree) >= MATCH_AGREE and arg_agree >= MATCH_AGREE
+            and sim_err <= SIM_TOL and min(matched) > 0.5 and same):
+        fail(f"single-pair matcher disagrees: idx agreement {agree}, argmax "
+             f"agreement {arg_agree}, sim err {sim_err}, matched {matched}, "
+             f"unchecked equal {same}")
+
+    fn, (prob,) = E.entry(dev)
+    out = fn(prob)
+    fn_c, (prob_c,) = E.entry("cpu")
+    out_c = fn_c(prob_c)
+    c_gpu, c_cpu = float(out["cost_final"]), float(out_c["cost_final"])
+    entry_rel = abs(c_gpu - c_cpu) / c_cpu
+    log(f"[bench] (b) entry: {out['iterations']} LM iters on {prob.R.device}, "
+        f"rmse {float(out['rmse_initial']):.4f} -> {float(out['rmse_final']):.5f}"
+        f" px, cost cuda {c_gpu:.6f} cpu {c_cpu:.6f} (rel {entry_rel:.2e})")
+    if not (prob.R.device.type == torch.device(dev).type
+            and out["iterations"] == out_c["iterations"]
+            and float(out["rmse_final"]) < float(out["rmse_initial"])
+            and entry_rel <= ENTRY_RTOL):
+        fail(f"entry(): card cost {c_gpu} vs cpu {c_cpu} (rel {entry_rel}, tol "
+             f"{ENTRY_RTOL}), iterations {out['iterations']} vs {out_c['iterations']}")
+
+    blur.reset_launches()
+    match_kernel.reset_launches()
+    res = bench_torch.run_all(dev)
+    torch.cuda.synchronize()
+    launches = dict(blur.LAUNCHES, **match_kernel.LAUNCHES)
+    octaves = SIFT(device=dev).num_octaves(bench_torch.EXTRACT_H, bench_torch.EXTRACT_W)
+    want_vh = 4 * (1 + octaves)               # warm-up + 3 batches, base + octaves
+    want_match = 1 + 64                       # warm-up + the timed calls
+    rates = {"dense_lm_iters_per_s": res["dense_ips"],
+             "pcg_lm_iters_per_s": res["pcg_ips"],
+             "extract_images_per_s": res["extract_ips"],
+             "match_pairs_per_s": res["match_pps"]}
+    print(json.dumps({"bench_torch": rates}), flush=True)
+    log(f"[bench] (c) run_all: {rates}; dense rmse {res['dense_rmse']:.5f}, "
+        f"pcg rmse {res['pcg_rmse']:.5f} px, pcg est {res['pcg_gflops']:.1f} "
+        f"GFLOP/s; launches {launches} (expected blur_vh {want_vh}, "
+        f"match_tile {want_match})")
+    if not (all(v > 0 for v in rates.values()) and res["dense_rmse"] <= RMSE_MAX
+            and res["pcg_rmse"] <= RMSE_MAX):
+        fail(f"bench: rates {rates}, rmse dense {res['dense_rmse']} pcg "
+             f"{res['pcg_rmse']} (need <= {RMSE_MAX})")
+    if not (launches["blur_vh"] == want_vh and launches["match_tile"] == want_match
+            and launches["blur_v"] == launches["blur_h"] == 0):
+        fail(f"bench launches {launches}, expected blur_vh {want_vh} and "
+             f"match_tile {want_match}")
+
+    rows, cols = match_kernel.match_tile_partials(bank, mask2, pair01)
+    a, b = descs[0], descs[1]
+    t = dict(
+        ms=time_ms(lambda: match_kernel.launch(bank, mask2, pair01, rows, cols), 20),
+        plain_ms=time_ms(lambda: match_kernel.match_stats_plain_batch(bank, mask2, pair01), 3),
+        library_ms=time_ms(lambda: bank[0] @ bank[1].T, 20),
+        auto_call_ms=time_ms(lambda: match_descriptors_pair_auto(a, b, mask, mask), 20),
+        unchecked_call_ms=time_ms(lambda: _pair_unchecked(a, b, mask, mask, pair01), 20),
+    )
+    nbytes, ops = roofline.match_work([MATCH_CAP, MATCH_CAP], [(0, 1)], MATCH_CAP)
+    t["bound_ms"], t["bound_by"] = roofline.bound(nbytes, ops, "bf16")
+    t["bound_share"] = t["bound_ms"] / t["ms"]
+    t["bench_ms_per_call"] = 1e3 / res["match_pps"]
+    log(f"[bench] (d) kernel 3 at P = 1: {t['ms']:.4f} ms per launch (grid "
+        f"{MATCH_CAP // match_kernel.TILE} x 1), bound {t['bound_ms']:.4f} ms "
+        f"({t['bound_by']}), plain {t['plain_ms']:.3f} ms, bf16 mm of the "
+        f"product {t['library_ms']:.4f} ms; match_descriptors_pair_auto "
+        f"{t['auto_call_ms']:.4f} ms per call, without the input checks' host "
+        f"waits {t['unchecked_call_ms']:.4f} ms; the bench loop "
+        f"{t['bench_ms_per_call']:.4f} ms per call")
+    single_pair = {
+        "pairs": 1, "capacity": MATCH_CAP, "grid": [MATCH_CAP // match_kernel.TILE, 1],
+        "max_abs_err": sim_err, "index_agreement": min(agree), **t,
+        "library_is": "bf16 torch.mm of the one product, not the same function",
+        "launches_bench": launches["match_tile"]}
+    return launches, single_pair, {
+        **rates, "dense_rmse_final": res["dense_rmse"],
+        "pcg_rmse_final": res["pcg_rmse"], "pcg_est_gflops": res["pcg_gflops"],
+        "pcg_observations": res["pcg_obs"], "entry_cuda_cpu_cost_rel": entry_rel}
 
 
 def copy_features(src, dst, names):
@@ -1293,6 +1445,7 @@ def main():
 
     rates = walled("ba_dense", phase_ba_dense, dev)
     rates.update(walled("ba_pcg", phase_ba_pcg, dev, rates["ba_dense_rmse_final"]))
+    launches_bench, single_pair, rates["bench"] = walled("bench", phase_bench, dev)
     par_tmp = tempfile.TemporaryDirectory()
     db16 = os.path.join(par_tmp.name, "features16.db")
     renders, launches, quality = walled("pipeline", phase_reconstruct, dev,
@@ -1319,6 +1472,7 @@ def main():
                 "launches_extract_match": launches_slice[name],
                 "launches_pipeline_alt": launches_alt[name],
                 "launches_extract_4000x3000": launches_3200[name],
+                "launches_bench": launches_bench[name],
                 "max_abs_err": err, "ms": ms, "plain_ms": plain,
                 "bound_ms": bound, "bound_by": by,
                 "bound_share": bound / ms, "library_ms": library, **extra}
@@ -1352,6 +1506,7 @@ def main():
               match_stats_whole_ms=tm["whole"],
               library_is="bf16 torch.bmm of the product alone, not the same function",
               launches_parallel=rates["parallel"]["match_launches"],
+              single_pair=single_pair,
               shape={"pairs": MATCH_IMAGES, "capacity": MATCH_CAP}),
     ]
     print(smi)

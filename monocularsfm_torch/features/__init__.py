@@ -4,10 +4,12 @@ from monocularsfm_torch.features.extraction import FeatureExtractor
 from monocularsfm_torch.features.matching import (
     BruteFeatureMatcher,
     SequentialFeatureMatcher,
+    VocabTreeFeatureMatcher,
 )
 
 __all__ = [
     "FeatureExtractor",
     "SequentialFeatureMatcher",
     "BruteFeatureMatcher",
+    "VocabTreeFeatureMatcher",
 ]

@@ -93,6 +93,20 @@ def _resize(gray: np.ndarray, h: int, w: int) -> np.ndarray:
     return out.astype(np.uint8)
 
 
+def _to_original(kps: np.ndarray, bgr, scale: float, w: int, h: int):
+    """Keypoints back in original coordinates (x, y and size divided by
+    `scale`) and the BGR colour at each rounded position (zeros without an
+    image).  Returns (keypoints, colors (N, 3) uint8)."""
+    if scale != 1.0:
+        kps = kps.copy()
+        kps[:, :3] /= scale
+    if bgr is not None and len(kps):
+        xi = np.clip(np.round(kps[:, 0]).astype(int), 0, w - 1)
+        yi = np.clip(np.round(kps[:, 1]).astype(int), 0, h - 1)
+        return kps, bgr[yi, xi].astype(np.uint8)
+    return kps, np.zeros((len(kps), 3), np.uint8)
+
+
 class FeatureExtractor:
     def __init__(self, config: ExtractionConfig | None = None, device="cuda"):
         self.cfg = config or ExtractionConfig()
@@ -122,6 +136,22 @@ class FeatureExtractor:
         return max(1, min(self.cfg.batch_size,
                           self.cfg.batch_pixel_budget // px))
 
+    def extract_one(self, gray: np.ndarray, bgr: np.ndarray | None = None):
+        """One image through the configured backend: the image cut to
+        max_image_size (`_resize`, cv2.resize's INTER_LINEAR bit for bit)
+        and SIFT on the extractor's device, or `extract_one_cv2`.  Returns
+        (keypoints (N, 4) x, y, size, angle in original coordinates, colors
+        (N, 3) uint8 BGR, descriptors (N, 128) float32)."""
+        if self.cfg.backend == "opencv":
+            return self.extract_one_cv2(gray, bgr)
+        h, w = gray.shape[:2]
+        scale = _scale_for(self.cfg.max_image_size, h, w)
+        gray_s = (_resize(gray, int(h * scale), int(w * scale))
+                  if scale != 1.0 else gray)
+        kps, desc = self._get_sift().extract(gray_s)
+        kps, colors = _to_original(kps, bgr, scale, w, h)
+        return kps, colors, desc
+
     def extract_one_cv2(self, gray: np.ndarray, bgr: np.ndarray | None = None):
         """The "opencv" backend on one image: cv2.SIFT on the image cut to
         max_image_size by cv2.resize.  Returns (keypoints (N, 4) x, y, size,
@@ -145,15 +175,8 @@ class FeatureExtractor:
             desc = np.sqrt(desc / np.maximum(np.abs(desc).sum(1, keepdims=True), 1e-12))
         else:
             desc = desc / np.maximum(np.linalg.norm(desc, axis=1, keepdims=True), 1e-12)
-        if scale != 1.0:
-            kps[:, :3] /= scale                   # x, y and size
-        if bgr is not None and len(kps):
-            xi = np.clip(np.round(kps[:, 0]).astype(int), 0, w - 1)
-            yi = np.clip(np.round(kps[:, 1]).astype(int), 0, h - 1)
-            colors = bgr[yi, xi]
-        else:
-            colors = np.zeros((len(kps), 3), np.uint8)
-        return kps, colors.astype(np.uint8), desc
+        kps, colors = _to_original(kps, bgr, scale, w, h)
+        return kps, colors, desc
 
     def run_extraction(self, images_path: str, database_path: str,
                        log=print) -> int:
@@ -207,15 +230,7 @@ class FeatureExtractor:
                 for (image_id, name, bgr, scale, w, h), kps, desc in zip(
                     metas, kps_list, desc_list
                 ):
-                    if scale != 1.0:
-                        kps = kps.copy()
-                        kps[:, :3] /= scale
-                    if len(kps):
-                        xi = np.clip(np.round(kps[:, 0]).astype(int), 0, w - 1)
-                        yi = np.clip(np.round(kps[:, 1]).astype(int), 0, h - 1)
-                        colors = bgr[yi, xi].astype(np.uint8)
-                    else:
-                        colors = np.zeros((0, 3), np.uint8)
+                    kps, colors = _to_original(kps, bgr, scale, w, h)
                     self._write(db, image_id, kps, colors, desc)
                     count += 1
                     log(f"[extract] {name}: {len(kps)} features")

@@ -13,6 +13,7 @@ from monocularsfm_torch.geometry.rotations import (
 )
 from monocularsfm_torch.geometry.projection import (
     project,
+    project_points,
     calculate_reprojection_error,
     calculate_parallax_angle_deg,
     has_positive_depth,
@@ -29,6 +30,7 @@ __all__ = [
     "matrix_to_quaternion",
     "quaternion_to_matrix",
     "project",
+    "project_points",
     "calculate_reprojection_error",
     "calculate_parallax_angle_deg",
     "has_positive_depth",

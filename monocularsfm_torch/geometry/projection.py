@@ -45,9 +45,22 @@ def project(K: torch.Tensor, R: torch.Tensor, t: torch.Tensor,
     return torch.stack([u, v], dim=-1)
 
 
+def project_points(K, R, t, X) -> torch.Tensor:
+    """Alias kept for call-site readability when X is a point batch."""
+    return project(K, R, t, X)
+
+
 def calculate_reprojection_error(K, R, t, X, uv) -> torch.Tensor:
     """L2 pixel reprojection error. uv: (..., 2) observed -> (...,)."""
     return torch.linalg.norm(project(K, R, t, X) - uv, dim=-1)
+
+
+def calculate_two_view_reprojection_error(K, R1, t1, R2, t2, X, uv1,
+                                          uv2) -> torch.Tensor:
+    """Mean of both views' errors (reference Projection.cpp:118-145)."""
+    e1 = calculate_reprojection_error(K, R1, t1, X, uv1)
+    e2 = calculate_reprojection_error(K, R2, t2, X, uv2)
+    return 0.5 * (e1 + e2)
 
 
 def calculate_parallax_angle_deg(C1: torch.Tensor, C2: torch.Tensor,

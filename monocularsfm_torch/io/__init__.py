@@ -8,13 +8,18 @@ writer has a matching reader where a textual/standard format allows, which
 gives mid-run checkpoint/resume for free (SURVEY.md section 5).
 """
 
-from monocularsfm_torch.io.colmap import write_colmap, read_colmap
+from monocularsfm_torch.io.colmap import (
+    map_from_colmap,
+    read_colmap,
+    write_colmap,
+)
 from monocularsfm_torch.io.ply import write_ply, write_ply_binary
 from monocularsfm_torch.io.openmvs import write_openmvs
 
 __all__ = [
     "write_colmap",
     "read_colmap",
+    "map_from_colmap",
     "write_ply",
     "write_ply_binary",
     "write_openmvs",

@@ -148,6 +148,25 @@ def read_colmap(model_dir):
     return {"cameras": cameras, "images": images, "points": points}
 
 
+def map_from_colmap(model_dir):
+    """Restore a reconstruction Map from a COLMAP text model (camera 1's
+    pinhole K; keypoints in the model are already undistorted): poses,
+    points and their track back-pointers, colours back to BGR."""
+    from monocularsfm_torch.reconstruction.map_state import Map
+
+    model = read_colmap(model_dir)
+    fx, fy, cx, cy = model["cameras"][1]["params"][:4]
+    m = Map(np.array([[fx, 0, cx], [0, fy, cy], [0, 0, 1]]))
+    for image_id, im in model["images"].items():
+        m.load_image(image_id, im["name"], im["uv"])
+        m.add_image_pose(image_id, im["R"], im["t"])
+    for pid, pt in sorted(model["points"].items()):
+        new_pid = m.add_point3d(pt["xyz"], pt["track"])
+        m._rgb[new_pid] = pt["rgb"][::-1]  # back to the BGR of the Map
+    m.modified_point3D_ids.clear()
+    return m
+
+
 def _data_lines(path):
     with open(path) as f:
         for line in f:

@@ -59,6 +59,29 @@ def match_descriptors_pair(desc_a, desc_b, mask_a, mask_b, ratio: float = 0.8,
     return _decide(mask_a, stats, ratio, max_distance, cross_check)
 
 
+def match_descriptors_pair_auto(desc_a, desc_b, mask_a, mask_b,
+                                ratio: float = 0.8, max_distance: float = 0.7,
+                                cross_check: bool = True,
+                                col_tile: int = 1024) -> torch.Tensor:
+    """The single-pair matcher by device: on CUDA tensors kernel 3 over a
+    two-image bf16 bank (both sides (N, 128), N a multiple of 128), on CPU
+    tensors `match_descriptors_pair`.  The same idx_b: int32[N_A] either
+    way."""
+    if desc_a.device.type == "cpu":
+        return match_descriptors_pair(desc_a, desc_b, mask_a, mask_b, ratio,
+                                      max_distance, cross_check, col_tile)
+    if desc_a.shape != desc_b.shape or mask_a.shape != mask_b.shape:
+        raise ValueError(f"the kernel matches equal capacities, got "
+                         f"{tuple(desc_a.shape)} and {tuple(desc_b.shape)}")
+    # bf16 on every backend (rule b), as the reference casts before its dot.
+    bank = torch.stack([desc_a.to(torch.bfloat16), desc_b.to(torch.bfloat16)])
+    # Made on the device: a copy from the host would wait for the stream.
+    pair_ids = torch.arange(2, dtype=torch.int32, device=bank.device)[None]
+    stats = match_stats(bank, torch.stack([mask_a, mask_b]), pair_ids,
+                        col_tile)
+    return _decide(mask_a[None], stats, ratio, max_distance, cross_check)[0]
+
+
 def match_pairs_batch(desc_bank, mask_bank, pair_ids, ratio: float = 0.8,
                       max_distance: float = 0.7, cross_check: bool = True,
                       col_tile: int = 1024, kernel: bool = True) -> torch.Tensor:

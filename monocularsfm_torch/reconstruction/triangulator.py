@@ -10,11 +10,21 @@ and the batch triangulates and tests on `device` in one pass.
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
 from monocularsfm_torch.config import TriangulatorConfig
 from monocularsfm_torch.geometry.triangulation import triangulate_n_view
+
+
+@dataclasses.dataclass
+class TriangulatorStatistics:
+    num_tried: int = 0
+    num_triangulated: int = 0
+    ave_residual: float = float("nan")  # NaN when zero tracks triangulate —
+    # the reference's quirk (MapBuilder.cpp:569), kept.
 
 
 def _triangulate_batch(K4, R, t, uv, valid, max_error_px, min_angle_deg):

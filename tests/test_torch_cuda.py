@@ -240,6 +240,34 @@ def test_match_kernel_rejects_bad_inputs(dev):
         match_kernel.match_tile_partials(bank[..., :64].contiguous(), mask, pairs)
 
 
+@pytest.mark.parametrize("cap", [128, 1024])
+def test_pair_auto_launches_the_kernel_and_equals_plain(dev, cap):
+    """The single-pair matcher on f32 CUDA tensors: one launch of kernel 3
+    and the plain matcher's idx_b on the same card; unequal capacities
+    raise."""
+    from monocularsfm_torch.ops.matching import (
+        match_descriptors_pair,
+        match_descriptors_pair_auto,
+    )
+
+    g = torch.Generator(dev).manual_seed(cap)
+    base = torch.randn((cap, 128), generator=g, device=dev)
+    a, b = (base + 0.35 * torch.randn((cap, 128), generator=g, device=dev)
+            for _ in range(2))
+    a, b = a / a.norm(dim=1, keepdim=True), b / b.norm(dim=1, keepdim=True)
+    ma = torch.rand(cap, generator=g, device=dev) > 0.1
+    mb = torch.ones(cap, dtype=torch.bool, device=dev)
+    match_kernel.reset_launches()
+    ours = match_descriptors_pair_auto(a, b, ma, mb)
+    assert match_kernel.LAUNCHES["match_tile"] == 1
+    assert ours.dtype == torch.int32 and ours.shape == (cap,)
+    ref = match_descriptors_pair(a, b, ma, mb, col_tile=min(cap, 1024))
+    assert (ours == ref).float().mean().item() >= 0.999
+    assert (ours >= 0).float().mean().item() > 0.5
+    with pytest.raises(ValueError):
+        match_descriptors_pair_auto(a, b[:cap // 2], ma, mb[:cap // 2])
+
+
 def _ring(split):
     """A small camera-ring BA problem (the bench recipe), host arrays."""
     from monocularsfm_torch.geometry import angle_axis_to_matrix
