@@ -29,7 +29,12 @@ traces and the undistorted-image export; then the PnP solvers (p3p, ap3p,
 p6p, upnp) on the card against the CPU with the same draws; last the
 shipped configs' image size: the fused blur at the octave-0 shape of a
 3200x2400 image, that image's SIFT on the card against the CPU, and
-`sfm-torch extract` of two 4000x3000 PNGs resized to 3200x2400.  Last
+`sfm-torch extract` of two 4000x3000 PNGs resized to 3200x2400.
+Between the second pipeline and the PnP solvers, `phase_gather`: SIFT's
+gather sampler (`sample_mode: gather`) on the slice's 1280x960 batch and
+a 3200x2400 image (against the same sampler on the CPU and against the
+patch sampler), the pipeline on 16 of the views in gather mode, and LM
+in segments (`dispatch_iters`) and on shuffled split rows.  Last
 the multi-device layer (`phase_parallel`) on the one card: landmark-sharded
 BA as a world of one NCCL rank in this process and as two gloo ranks
 sharing the card (the dense and the scaling table's PCG ring, against the
@@ -125,6 +130,19 @@ PAR_TIMEOUT = 300.0
 # point's solve on the card against the CPU.
 BENCH_PAIRS = 4
 ENTRY_RTOL = 1e-4
+# SIFT's gather sampler (sample_mode "gather", phase_gather): the slice's
+# 4-image 1280x960 batch and one 3200x2400 image in both modes; gather
+# against patch under the reference's rule (tests/test_sift.py): of the
+# keypoints inside the descriptor's reach, GATHER_SHARED at least pair by
+# (x, y, angle), their descriptors within GATHER_DESC_TOL.  Then the
+# pipeline on the first GATHER_VIEWS of the main pipeline's renders.
+GATHER_IMAGES, GATHER_VIEWS, GATHER_MIN_REG = 4, 16, 15
+GATHER_SHARED, GATHER_DESC_TOL = 0.9, 5e-3
+# Resumable LM: segments of SEG_DENSE_STEP / SEG_PCG_STEP iterations against
+# one segment of the same fixed work, rmse_final within SEG_RTOL relative
+# (index_add_ sums in any order on the card); the PCG ring's split rows
+# shuffled against the sorted rows, within the same.
+SEG_DENSE_ITERS, SEG_DENSE_STEP, SEG_PCG_STEP, SEG_RTOL = 12, 4, 3, 1e-4
 PAR_PROBLEMS = (   # (name, (cams, points, track, seed), solver arguments)
     ("dense", (BA_CAMS, BA_POINTS, BA_TRACK, 2),
      dict(max_iterations=BA_ITERS, **FIXED_WORK)),
@@ -1105,6 +1123,244 @@ def phase_pipeline_alt(dev, renders):
         "stage_s": stages, "mapbuilder_s": timers,
     }
 
+def profiled_launches(fn):
+    """(fn(), device kernel launches, their busy ms) under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    return out, len(kernels), sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+
+
+def gather_vs_patch(kg, dg, kp, dp, H, W):
+    """The reference's rule for its two samplers (tests/test_sift.py::
+    test_patch_path_matches_gather_path): keypoints farther from the border
+    than the descriptor's reach, paired by (x, y, angle) rounded to (0.01,
+    0.01, 1); returns (paired share of the larger interior set, the paired
+    descriptors' max abs difference)."""
+    def interior(kp):
+        margin = 4.0 * kp[:, 2] + 6.0
+        return ((kp[:, 0] > margin) & (kp[:, 0] < W - margin)
+                & (kp[:, 1] > margin) & (kp[:, 1] < H - margin))
+
+    def keyed(k):
+        return {(round(float(k[i, 0]), 2), round(float(k[i, 1]), 2),
+                 round(float(k[i, 3]), 0)): i for i in np.nonzero(interior(k))[0]}
+
+    a, b = keyed(kg), keyed(kp)
+    common = sorted(set(a) & set(b))
+    if not common:
+        return 0.0, math.inf
+    ia = np.asarray([a[c] for c in common])
+    ib = np.asarray([b[c] for c in common])
+    return (len(common) / max(len(a), len(b)),
+            float(np.abs(dg[ia] - dp[ib]).max()))
+
+
+def sift_modes(dev, imgs, reps=3):
+    """Both samplers on one batch on the card: the median wall of
+    extract_batch (after a warm-up), peak memory, launches and busy time of
+    one profiled call, and the outputs."""
+    from monocularsfm_torch.ops.sift import SIFT
+
+    res = {}
+    for mode in ("gather", "patch"):
+        sift = SIFT(sample_mode=mode, device=dev)
+        sift.extract_batch(imgs)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        walls = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            out = sift.extract_batch(imgs)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated()
+        _, launches, busy = profiled_launches(lambda: sift.extract_batch(imgs))
+        res[mode] = {"out": out, "ms": 1e3 * float(np.median(walls)),
+                     "peak_bytes": peak, "launches": launches, "busy_ms": busy}
+    return res
+
+
+def seg_pair(name, gpu, dev, step, **kw):
+    """One segment against segments of `step` LM iterations, same work."""
+    mono, t_mono = timed_ba(gpu, dev, **kw)
+    seg, t_seg = timed_ba(gpu, dev, dispatch_iters=step, **kw)
+    a, b = float(mono["rmse_final"]), float(seg["rmse_final"])
+    rel = abs(a - b) / a
+    log(f"[gather] {name}: {mono['iterations']} LM iters in one segment "
+        f"{t_mono:.4f}s, in segments of {step} {t_seg:.4f}s "
+        f"({seg['iterations']} iters); rmse {a:.6f} vs {b:.6f} (rel {rel:.2e})")
+    if not (rel <= SEG_RTOL and max(a, b) <= RMSE_MAX
+            and seg["iterations"] == mono["iterations"]):
+        fail(f"{name}: segmented rmse_final {b} vs one segment {a} (rel {rel}, "
+             f"tol {SEG_RTOL}), iterations {seg['iterations']} vs "
+             f"{mono['iterations']}")
+    return mono, {"iterations": mono["iterations"], "one_segment_s": t_mono,
+                  "segmented_s": t_seg, "step": step, "rmse_final": a,
+                  "segmented_rmse_final": b, "rmse_rel": rel}
+
+
+def phase_gather(dev, renders):
+    """SIFT's gather sampler (`sample_mode: gather`) and resumable LM on the
+    card.  The slice's 4-image 1280x960 batch through both samplers (ms per
+    batch, launches, idle, peak), gather on the card against gather on the
+    CPU for one image, and gather against patch under the reference's
+    rule; one 3200x2400 image the same way; `sfm-torch` extract, match and
+    reconstruct with `sample_mode: gather` on the first GATHER_VIEWS of the
+    main pipeline's renders (`renders`: images, K, R, t), counting the
+    kernels it launches; then LM in segments (`dispatch_iters`) against one
+    segment on the dense and PCG rings, and PCG on shuffled split rows."""
+    import dataclasses
+
+    from monocularsfm_torch import cli
+    from monocularsfm_torch.config import SfMConfig
+    from monocularsfm_torch.ops import blur, match_kernel
+    from monocularsfm_torch.ops.sift import SIFT
+    from monocularsfm_torch.utils.png import write_png
+    from monocularsfm_torch.utils.ring_problem import ring_problem
+    from monocularsfm_torch.utils.synthetic import render_textured_images
+
+    res = {}
+    t0 = time.perf_counter()
+    imgs = render_textured_images(num_cameras=GATHER_IMAGES, width=SLICE_W,
+                                  height=SLICE_H, scene_seed=5)[0]
+    log(f"[gather] rendered {GATHER_IMAGES} images {SLICE_W}x{SLICE_H} in "
+        f"{time.perf_counter() - t0:.1f}s")
+    modes = sift_modes(dev, imgs)
+    t0 = time.perf_counter()
+    kc, dc = SIFT(sample_mode="gather", device="cpu").extract(imgs[0])
+    t_cpu = time.perf_counter() - t0
+    (kg, *_), (dg, *_) = modes["gather"]["out"]
+    j = pair_keypoints(kc, kg)
+    share = min((j >= 0).mean(), (pair_keypoints(kg, kc) >= 0).mean())
+    derr = float(np.abs(dc[j >= 0] - dg[j[j >= 0]]).max())
+    log(f"[gather] {SLICE_W}x{SLICE_H} image 0: {len(kc)} cpu / {len(kg)} cuda "
+        f"keypoints, {share:.4f} paired within {KP_TOL} px both ways, "
+        f"descriptor err {derr:.3g} (cpu {t_cpu:.1f}s)")
+    if (abs(len(kg) - len(kc)) > KP_COUNT_TOL * len(kc) or share < KP_AGREE
+            or derr > DESC_TOL):
+        fail(f"gather SIFT cuda vs cpu: {len(kg)} vs {len(kc)} keypoints, paired "
+             f"{share} (need {KP_AGREE}), descriptor err {derr} (tol {DESC_TOL})")
+    rule = [gather_vs_patch(kg_, dg_, kp_, dp_, SLICE_H, SLICE_W)
+            for kg_, dg_, kp_, dp_ in zip(*modes["gather"]["out"],
+                                         *modes["patch"]["out"])]
+    for mode, m in modes.items():
+        log(f"[gather] {mode}: {m['ms']:.2f} ms per {GATHER_IMAGES}-image batch, "
+            f"{m['launches']} launches, busy {m['busy_ms']:.2f} ms (profiled), "
+            f"peak {m['peak_bytes'] / 2**30:.2f} GiB, keypoints "
+            f"{[len(k) for k in m['out'][0]]}")
+    log(f"[gather] gather vs patch (shared interior share, descriptor err) "
+        f"per image: {rule}")
+    if min(r[0] for r in rule) < GATHER_SHARED or max(r[1] for r in rule) >= GATHER_DESC_TOL:
+        fail(f"gather vs patch at {SLICE_W}x{SLICE_H}: {rule} (need shared >= "
+             f"{GATHER_SHARED}, descriptors < {GATHER_DESC_TOL})")
+    res["batch_1280x960"] = {
+        mode: {k: v for k, v in m.items() if k != "out"} | {
+            "keypoints": [len(k) for k in m["out"][0]]}
+        for mode, m in modes.items()}
+    res["batch_1280x960"]["cuda_vs_cpu"] = {
+        "keypoints": [len(kg), len(kc)], "paired_share": float(share),
+        "descriptor_err": derr, "cpu_s": t_cpu}
+    res["batch_1280x960"]["gather_vs_patch"] = rule
+    del modes
+
+    t0 = time.perf_counter()
+    big = render_textured_images(num_cameras=1, width=BIG_W, height=BIG_H,
+                                 scene_seed=BIG_SEED)[0]
+    log(f"[gather] rendered {BIG_W}x{BIG_H} in {time.perf_counter() - t0:.1f}s")
+    modes = sift_modes(dev, big, reps=2)
+    (kg, dg), (kp, dp) = ((m["out"][0][0], m["out"][1][0]) for m in modes.values())
+    big_rule = gather_vs_patch(kg, dg, kp, dp, BIG_H, BIG_W)
+    for mode, m in modes.items():
+        log(f"[gather] {BIG_W}x{BIG_H} {mode}: {m['ms'] / 1e3:.4f} s/image, "
+            f"{m['launches']} launches, busy {m['busy_ms']:.2f} ms, peak "
+            f"{m['peak_bytes'] / 2**30:.2f} GiB, {len(m['out'][0][0])} keypoints")
+    log(f"[gather] {BIG_W}x{BIG_H} gather vs patch: {big_rule}")
+    if big_rule[0] < GATHER_SHARED or big_rule[1] >= GATHER_DESC_TOL:
+        fail(f"gather vs patch at {BIG_W}x{BIG_H}: {big_rule}")
+    res["image_3200x2400"] = {
+        mode: {k: v for k, v in m.items() if k != "out"} | {
+            "keypoints": len(m["out"][0][0])}
+        for mode, m in modes.items()}
+    res["image_3200x2400"]["gather_vs_patch"] = big_rule
+    del modes, big
+
+    imgs, K = renders[0][:GATHER_VIEWS], renders[1]
+    quiet = lambda *a: None  # noqa: E731
+    stages = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        images = os.path.join(tmp, "images")
+        os.makedirs(images)
+        for i, im in enumerate(imgs):
+            write_png(f"{images}/frame{i:04d}.png", im)
+        cfg = SfMConfig(images_path=images, database_path=f"{tmp}/gather.db",
+                        output_path=f"{tmp}/out")
+        cfg.camera.fx, cfg.camera.fy = float(K[0, 0]), float(K[1, 1])
+        cfg.camera.cx, cfg.camera.cy = float(K[0, 2]), float(K[1, 2])
+        cfg.extraction.num_features = 8024
+        cfg.extraction.sample_mode = "gather"
+        cfg.matching.match_type = "sequential"
+        cfg.matching.overlap = 12
+        blur.reset_launches()
+        match_kernel.reset_launches()
+        for name, fn in (("extract", cli.cmd_extract), ("match", cli.cmd_match),
+                         ("reconstruct", cli.cmd_reconstruct)):
+            torch.cuda.synchronize()
+            a0 = time.perf_counter()
+            builder = fn(cfg, device=dev, log=quiet)
+            torch.cuda.synchronize()
+            stages[name] = time.perf_counter() - a0
+        launches = dict(blur.LAUNCHES, **match_kernel.LAUNCHES)
+        st = builder.map.statistics()
+    log(f"[gather] pipeline on {GATHER_VIEWS} views with sample_mode gather: "
+        f"{st.num_registered_images} registered, {st.num_points3D} points, mean "
+        f"reproj {st.mean_reprojection_error:.5f} px; stages (s) {stages}; "
+        f"launches {launches}")
+    if (st.num_registered_images < GATHER_MIN_REG
+            or not st.mean_reprojection_error < MP_REPROJ_MAX):
+        fail(f"gather pipeline: {st.num_registered_images} of {GATHER_VIEWS} "
+             f"registered, {st.mean_reprojection_error} px")
+    if not (launches["blur_vh"] > 0 and launches["match_tile"] > 0):
+        fail(f"gather pipeline kernel launches {launches}")
+    res["pipeline"] = {"views": GATHER_VIEWS,
+                       "registered": st.num_registered_images,
+                       "points": st.num_points3D,
+                       "mean_reproj_px": st.mean_reprojection_error,
+                       "stage_s": stages}
+
+    dense, _ = ring_problem(BA_CAMS, BA_POINTS, BA_TRACK, seed=2)
+    _, res["segmented_dense"] = seg_pair(
+        "dense", dense.to(dev), dev, SEG_DENSE_STEP,
+        max_iterations=SEG_DENSE_ITERS, **FIXED_WORK)
+    del dense
+    pcg, _ = ring_problem(PCG_CAMS, PCG_POINTS, PCG_TRACK, seed=3, row_width=3)
+    gpu = pcg.to(dev)
+    del pcg
+    kw = dict(max_iterations=PCG_LM_ITERS, solve_mode="pcg", pcg_iters=PCG_INNER,
+              **FIXED_WORK)
+    mono, res["segmented_pcg"] = seg_pair("pcg", gpu, dev, SEG_PCG_STEP, **kw)
+    perm = torch.from_numpy(np.random.default_rng(SEED).permutation(
+        gpu.obs_cam.shape[0])).to(dev)
+    shuffled = dataclasses.replace(gpu, **{
+        f: getattr(gpu, f)[perm] for f in ("obs_cam", "obs_uv", "obs_valid",
+                                           "point_rows")})
+    del gpu
+    out, t_shuf = timed_ba(shuffled, dev, **kw)
+    a, b = float(mono["rmse_final"]), float(out["rmse_final"])
+    rel = abs(a - b) / a
+    log(f"[gather] pcg on shuffled split rows: {out['iterations']} LM iters in "
+        f"{t_shuf:.4f}s, rmse {b:.6f} vs sorted {a:.6f} (rel {rel:.2e})")
+    if rel > SEG_RTOL:
+        fail(f"PCG on shuffled rows: rmse_final {b} vs sorted {a} (rel {rel})")
+    res["pcg_shuffled_rows"] = {"s": t_shuf, "rmse_final": b, "rmse_rel": rel}
+    return launches, res
+
+
 def pair_keypoints(ka, kb):
     """For each keypoint of `ka`, the index of a keypoint of `kb` within
     KP_TOL on both axes and 0.5 degrees of orientation, or -1 (a k-d tree,
@@ -1453,6 +1709,7 @@ def main():
     rates.update(quality)
     launches_alt, rates["pipeline_alt"] = walled("pipeline_alt", phase_pipeline_alt,
                                                  dev, renders)
+    launches_gather, rates["gather"] = walled("gather", phase_gather, dev, renders)
     K_mp = renders[1]
     del renders
     rates["pnp"] = walled("pnp", phase_pnp, dev)
@@ -1473,6 +1730,7 @@ def main():
                 "launches_pipeline_alt": launches_alt[name],
                 "launches_extract_4000x3000": launches_3200[name],
                 "launches_bench": launches_bench[name],
+                "launches_gather": launches_gather[name],
                 "max_abs_err": err, "ms": ms, "plain_ms": plain,
                 "bound_ms": bound, "bound_by": by,
                 "bound_share": bound / ms, "library_ms": library, **extra}

@@ -56,6 +56,13 @@ def transfer_error(H: torch.Tensor, x1: torch.Tensor,
     return (y[0] / w - x2[..., 0]) ** 2 + (y[1] / w - x2[..., 1]) ** 2
 
 
+def symmetric_transfer_error(H: torch.Tensor, Hinv: torch.Tensor,
+                             x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
+    """Mean of the forward (H x1 against x2) and backward (Hinv x2 against
+    x1) squared transfer errors, (..., N)."""
+    return 0.5 * (transfer_error(H, x1, x2) + transfer_error(Hinv, x2, x1))
+
+
 def estimate_homography_ransac(u: torch.Tensor, x1: torch.Tensor,
                                x2: torch.Tensor, mask: torch.Tensor,
                                threshold_px: float = 12.0):

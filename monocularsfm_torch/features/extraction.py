@@ -123,6 +123,7 @@ class FeatureExtractor:
                 num_features=self.cfg.num_features,
                 normalization=self.cfg.normalization,
                 decay_octave_budget=self.cfg.decay_octave_budget,
+                sample_mode=self.cfg.sample_mode,
                 transfer_dtype=self.cfg.transfer_dtype,
                 device=self.device,
             )

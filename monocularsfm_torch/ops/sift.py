@@ -6,9 +6,15 @@ src/Feature/FeatureUtils.cpp:14-96, :260-281).  It keeps the reference's
 algorithm step for step: 2x bilinear upsample and base blur, per octave one
 multi-channel Gaussian stack blurred directly from the octave base (kernels
 1-2, ops/blur.py), the 26-neighbour DoG extremum test, a damped closed-form
-3x3 sub-pixel refinement, then per keypoint a 66 x 66 patch whose bilinear
-gradient samples are separable interpolation matmuls (orientation histogram
-with two slots, 4 x 4 x 8 descriptor), and the cross-octave top-N by size.
+3x3 sub-pixel refinement, an orientation histogram with two slots and a
+4 x 4 x 8 descriptor from bilinear gradient samples, and the cross-octave
+top-N by size.  Two samplers, chosen by `sample_mode` as in the reference:
+"patch" (the default) cuts a 66 x 66 patch per keypoint and samples it by
+separable interpolation matmuls; any other value selects the gather
+sampler, which samples every candidate of an octave at once by row gathers
+from a packed gradient table.  They differ at the border: the patch
+replicates the edge, the gather clamps its sample coordinates and sees
+zero border gradients.
 
 The constant tables below are computed with the reference's own numpy code;
 they are the only parameters of the extractor.  Ties keep the reference's
@@ -289,14 +295,94 @@ def _smooth(h: torch.Tensor) -> torch.Tensor:
 
 
 def _interp_angle(h: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Parabolic peak interpolation of histogram rows h (K, 36) at bins b."""
-    l = torch.gather(h, 1, torch.remainder(b - 1, ORI_BINS)[:, None])[:, 0]
-    cme = torch.gather(h, 1, b[:, None])[:, 0]
-    rr = torch.gather(h, 1, torch.remainder(b + 1, ORI_BINS)[:, None])[:, 0]
+    """Parabolic peak interpolation of histogram rows h (..., 36) at bins b."""
+    def at(i):
+        return torch.gather(h, -1, i[..., None])[..., 0]
+
+    l = at(torch.remainder(b - 1, ORI_BINS))
+    cme = at(b)
+    rr = at(torch.remainder(b + 1, ORI_BINS))
     denom = l - 2 * cme + rr
     off_b = torch.where(denom.abs() > 1e-9, 0.5 * (l - rr) / denom, 0.0)
     bin_pos = torch.remainder(b.float() + off_b, ORI_BINS)
     return bin_pos / ORI_BINS * 2 * math.pi - math.pi
+
+
+def _soft_bins(binf: torch.Tensor, weight: torch.Tensor, n: int):
+    """(..., N) fractional bins and weights -> two (..., N, n) tensors, the
+    weights' shares of their bin and of the next (circular), split
+    linearly.  Callers sum them over the sample axis in a fixed order, so
+    that the card and the CPU build the same histograms (index_add_ sums
+    in any order on the card)."""
+    b0 = torch.remainder(torch.floor(binf).long(), n)
+    frac = binf - torch.floor(binf)
+    bins = torch.arange(n, device=binf.device)
+    lo = torch.where(b0[..., None] == bins, (weight * (1 - frac))[..., None], 0.0)
+    hi = torch.where(torch.remainder(b0 + 1, n)[..., None] == bins,
+                     (weight * frac)[..., None], 0.0)
+    return lo, hi
+
+
+def _orientations(gxs: torch.Tensor, gys: torch.Tensor):
+    """Dominant orientations from the (..., 256) gradient samples of the
+    orientation grid: the 36-bin histogram of magnitudes times the grid's
+    Gaussian, smoothed twice by [1 4 6 4 1] / 16; the primary peak (first
+    argmax) and the best other local maximum, valid at >= ORI_PEAK_RATIO
+    of the peak, both parabolically refined.
+    Returns (angles (..., 2), angle_valid (..., 2))."""
+    ori_gw = torch.as_tensor(_ORI_GAUSS, device=gxs.device)
+    mag = torch.sqrt(gxs * gxs + gys * gys)
+    ang = torch.atan2(gys, gxs)
+    binf = (ang + math.pi) / (2 * math.pi) * ORI_BINS
+    lo, hi = _soft_bins(binf, mag * ori_gw, ORI_BINS)       # (..., 256, 36)
+    hist = lo.sum(-2) + hi.sum(-2)
+    hist = _smooth(_smooth(hist))
+    peak = hist.amax(-1)
+
+    b1 = torch.argmax(hist, dim=-1)
+    a1 = _interp_angle(hist, b1)
+    is_localmax = (hist >= _roll(hist, 1)) & (hist >= _roll(hist, -1))
+    bins = torch.arange(ORI_BINS, device=hist.device)
+    mask2 = is_localmax & (bins != b1[..., None])
+    h2 = torch.where(mask2, hist, -1.0)
+    b2 = torch.argmax(h2, dim=-1)
+    a2 = _interp_angle(hist, b2)
+    v2 = torch.gather(h2, -1, b2[..., None])[..., 0] >= ORI_PEAK_RATIO * peak
+    return torch.stack([a1, a2], dim=-1), torch.stack([peak > 0, v2], dim=-1)
+
+
+def _descriptor_grid(x, y, sig, angles):
+    """Sample positions of the rotated 16 x 16 descriptor grid for both
+    orientation slots: x, y, sig (...,), angles (..., 2) -> (..., 2, 256)."""
+    desc_off = torch.as_tensor(_DESC_OFF, device=x.device)  # (256, 2)
+    cell = (DESC_SCL_FCTR * sig)[..., None, None]          # (..., 1, 1)
+    ca = torch.cos(angles)[..., None]                      # (..., 2, 1)
+    sa = torch.sin(angles)[..., None]
+    ox = desc_off[:, 0] * cell                             # (..., 1, 256)
+    oy = desc_off[:, 1] * cell
+    sx = x[..., None, None] + ca * ox - sa * oy
+    sy = y[..., None, None] + sa * ox + ca * oy
+    return sx, sy
+
+
+def _descriptors(gxs: torch.Tensor, gys: torch.Tensor,
+                 angles: torch.Tensor) -> torch.Tensor:
+    """(..., 2, 256) gradient samples of the rotated grid -> (..., 2, 128):
+    8 orientation bins soft-assigned relative to each slot's angle, the
+    constant (256, 16) spatial weights contracted in fp32, then normalise,
+    clip at DESC_MAG_THR and renormalise."""
+    spatial_w = torch.as_tensor(_DESC_SPATIAL_W, device=gxs.device)  # (256, 16)
+    gauss_w = torch.as_tensor(_DESC_GAUSS_W, device=gxs.device)      # (256,)
+    mag = torch.sqrt(gxs ** 2 + gys ** 2) * gauss_w
+    ang = torch.atan2(gys, gxs) - angles[..., None]
+    binf = torch.remainder((ang / (2 * math.pi)) * DESC_BINS, DESC_BINS)
+    lo, hi = _soft_bins(binf, mag, DESC_BINS)              # (..., 2, 256, 8)
+    ori_contrib = lo + hi
+    d = torch.matmul(spatial_w.T, ori_contrib)             # (..., 2, 16, 8)
+    d = d.reshape(d.shape[:-2] + (128,))
+    d = d / torch.clamp(torch.linalg.norm(d, dim=-1, keepdim=True), min=1e-12)
+    d = torch.clamp(d, max=DESC_MAG_THR)
+    return d / torch.clamp(torch.linalg.norm(d, dim=-1, keepdim=True), min=1e-12)
 
 
 def _orient_describe_patch_body(gauss: torch.Tensor, det: dict):
@@ -304,80 +390,28 @@ def _orient_describe_patch_body(gauss: torch.Tensor, det: dict):
 
     det: (K,) tensors img, x, y, sigma_octave, scale_i.  Returns
     (angles (K, 2), angle_valid (K, 2), desc (K, 2, 128))."""
-    dev = gauss.device
     x, y = det["x"], det["y"]
     sig = det["sigma_octave"]
     K = x.shape[0]
 
     xi = _float_to_index(x)
     yi = _float_to_index(y)
-    fx = x - xi
-    fy = y - yi
     patches = _extract_patches(gauss, det["img"], det["scale_i"], yi, xi)
     g2 = _patch_gradients(patches)
-    cx = _PATCH_C + fx
-    cy = _PATCH_C + fy
+    # Patch coordinates: the keypoint's integer pixel sits at _PATCH_C.
+    cx = _PATCH_C + (x - xi)
+    cy = _PATCH_C + (y - yi)
 
-    # --- orientation -------------------------------------------------------
-    ori_off = torch.as_tensor(_ORI_OFF, device=dev)
-    ori_gw = torch.as_tensor(_ORI_GAUSS, device=dev)
+    ori_off = torch.as_tensor(_ORI_OFF, device=gauss.device)
     radius = (4.5 * ORI_SIG_FCTR * sig)[:, None]           # (K, 1)
     sx_o = cx[:, None] + ori_off[None, :, 0] * radius      # (K, 256)
     sy_o = cy[:, None] + ori_off[None, :, 1] * radius
-    gxs, gys = _sample_patch_grads(g2, sy_o, sx_o)
-    mag = torch.sqrt(gxs * gxs + gys * gys)
-    ang = torch.atan2(gys, gxs)
-    binf = (ang + math.pi) / (2 * math.pi) * ORI_BINS
-    b0 = torch.remainder(torch.floor(binf).long(), ORI_BINS)
-    frac = binf - torch.floor(binf)
-    w = mag * ori_gw[None, :]
-    oh0 = F.one_hot(b0, ORI_BINS).float()
-    oh1 = F.one_hot(torch.remainder(b0 + 1, ORI_BINS), ORI_BINS).float()
-    hist = ((oh0 * (w * (1 - frac))[..., None]).sum(1)
-            + (oh1 * (w * frac)[..., None]).sum(1))        # (K, 36)
-    hist = _smooth(_smooth(hist))
-    peak = hist.amax(-1)
+    angles, avalid = _orientations(*_sample_patch_grads(g2, sy_o, sx_o))
 
-    b1 = torch.argmax(hist, dim=-1)
-    a1 = _interp_angle(hist, b1)
-    is_localmax = (hist >= _roll(hist, 1)) & (hist >= _roll(hist, -1))
-    bins = torch.arange(ORI_BINS, device=dev)
-    mask2 = is_localmax & (bins[None, :] != b1[:, None])
-    h2 = torch.where(mask2, hist, -1.0)
-    b2 = torch.argmax(h2, dim=-1)
-    a2 = _interp_angle(hist, b2)
-    v2 = torch.gather(h2, 1, b2[:, None])[:, 0] >= ORI_PEAK_RATIO * peak
-    angles = torch.stack([a1, a2], dim=-1)                 # (K, 2)
-    avalid = torch.stack([peak > 0, v2], dim=-1)
-
-    # --- descriptors (both orientation slots at once) -----------------------
-    desc_off = torch.as_tensor(_DESC_OFF, device=dev)      # (256, 2)
-    spatial_w = torch.as_tensor(_DESC_SPATIAL_W, device=dev)  # (256, 16)
-    gauss_w = torch.as_tensor(_DESC_GAUSS_W, device=dev)   # (256,)
-    cell = (DESC_SCL_FCTR * sig)[:, None, None]            # (K, 1, 1)
-    ca = torch.cos(angles)[..., None]                      # (K, 2, 1)
-    sa = torch.sin(angles)[..., None]
-    ox = desc_off[None, None, :, 0] * cell                 # (K, 2, 256)
-    oy = desc_off[None, None, :, 1] * cell
-    sx_d = (cx[:, None, None] + ca * ox - sa * oy).reshape(K, -1)  # (K, 512)
-    sy_d = (cy[:, None, None] + sa * ox + ca * oy).reshape(K, -1)
-    gxs_d, gys_d = _sample_patch_grads(g2, sy_d, sx_d)     # (K, 512)
-    gxs_d = gxs_d.reshape(K, 2, 256)
-    gys_d = gys_d.reshape(K, 2, 256)
-    mag_d = torch.sqrt(gxs_d ** 2 + gys_d ** 2) * gauss_w[None, None, :]
-    ang_d = torch.atan2(gys_d, gxs_d) - angles[..., None]
-    binf_d = torch.remainder((ang_d / (2 * math.pi)) * DESC_BINS, DESC_BINS)
-    b0_d = torch.remainder(torch.floor(binf_d).long(), DESC_BINS)
-    frac_d = binf_d - torch.floor(binf_d)
-    oh0_d = F.one_hot(b0_d, DESC_BINS).float() * (1 - frac_d)[..., None]
-    oh1_d = (F.one_hot(torch.remainder(b0_d + 1, DESC_BINS), DESC_BINS).float()
-             * frac_d[..., None])
-    ori_contrib = (oh0_d + oh1_d) * mag_d[..., None]       # (K, 2, 256, 8)
-    d = torch.matmul(spatial_w.T, ori_contrib)             # (K, 2, 16, 8)
-    d = d.reshape(K, 2, 128)
-    d = d / torch.clamp(torch.linalg.norm(d, dim=-1, keepdim=True), min=1e-12)
-    d = torch.clamp(d, max=DESC_MAG_THR)
-    d = d / torch.clamp(torch.linalg.norm(d, dim=-1, keepdim=True), min=1e-12)
+    sx_d, sy_d = _descriptor_grid(cx, cy, sig, angles)     # (K, 2, 256)
+    gxs_d, gys_d = _sample_patch_grads(g2, sy_d.reshape(K, -1),
+                                       sx_d.reshape(K, -1))  # (K, 512)
+    d = _descriptors(gxs_d.reshape(K, 2, 256), gys_d.reshape(K, 2, 256), angles)
     return angles, avalid, d
 
 
@@ -396,6 +430,78 @@ def _orient_and_describe_patch(gauss: torch.Tensor, det: dict):
     angles, avalid, desc = (torch.cat(o) for o in zip(*outs))
     return (angles.reshape(B, K, 2), avalid.reshape(B, K, 2),
             desc.reshape(B, K, 2, 128))
+
+
+def _gradient_pack(gauss: torch.Tensor) -> torch.Tensor:
+    """(B, S, H, W) Gaussian stacks -> (B*S*H*W, 4) rows [gx[i], gx[i+1],
+    gy[i], gy[i+1]] of central differences, zero on the border rows and
+    columns.  i runs over each image's flattened (S, H, W) volume, and the
+    shifted columns wrap from its last element to its first, as the
+    reference's pack does (no sample reads the wrapped value)."""
+    B = gauss.shape[0]
+    gx = torch.zeros_like(gauss)
+    gx[..., 1:-1] = 0.5 * (gauss[..., 2:] - gauss[..., :-2])
+    gy = torch.zeros_like(gauss)
+    gy[..., 1:-1, :] = 0.5 * (gauss[..., 2:, :] - gauss[..., :-2, :])
+    gx = gx.reshape(B, -1)
+    gy = gy.reshape(B, -1)
+    return torch.stack([gx, torch.roll(gx, -1, 1), gy, torch.roll(gy, -1, 1)],
+                       dim=-1).reshape(-1, 4)
+
+
+def _bilinear_grads(gpack: torch.Tensor, shape, si: torch.Tensor,
+                    x: torch.Tensor, y: torch.Tensor):
+    """Bilinear samples of both gradient components.
+
+    gpack: _gradient_pack's table; shape: (S, H, W) of one image's volume;
+    si: each sample's plane (image * S + scale), broadcast against x and y.
+    Coordinates clamp to [0, W-1.001] x [0, H-1.001] (non-finite ones,
+    only of rejected candidates, to 0 first); two row gathers (rows base
+    and base + W) fetch the eight values of a sample.
+    Returns (gx_s, gy_s) shaped like x."""
+    _, H, W = shape
+    x = torch.clamp(torch.nan_to_num(x, nan=0.0), 0.0, W - 1.001)
+    y = torch.clamp(torch.nan_to_num(y, nan=0.0), 0.0, H - 1.001)
+    x0 = torch.floor(x).long()
+    y0 = torch.floor(y).long()
+    fx = x - x0
+    fy = y - y0
+    base = (si * (H * W) + y0 * W + x0).reshape(-1)
+    r0 = gpack.index_select(0, base).view(x.shape + (4,))
+    r1 = gpack.index_select(0, base + W).view(x.shape + (4,))
+    w00 = (1 - fx) * (1 - fy)
+    w01 = fx * (1 - fy)
+    w10 = (1 - fx) * fy
+    w11 = fx * fy
+    gx_s = (r0[..., 0] * w00 + r0[..., 1] * w01
+            + r1[..., 0] * w10 + r1[..., 1] * w11)
+    gy_s = (r0[..., 2] * w00 + r0[..., 3] * w01
+            + r1[..., 2] * w10 + r1[..., 3] * w11)
+    return gx_s, gy_s
+
+
+def _orient_and_describe_gather(gauss: torch.Tensor, det: dict):
+    """The gather formulation: orientation + descriptors for every (B, K)
+    candidate of one octave at once, sampled at the keypoints' own octave
+    coordinates from the packed gradient table.  Returns (angles (B, K, 2),
+    angle_valid (B, K, 2), desc (B, K, 2, 128))."""
+    B, S, H, W = gauss.shape
+    dev = gauss.device
+    gpack = _gradient_pack(gauss)
+    plane = torch.arange(B, device=dev)[:, None] * S + det["scale_i"]  # (B, K)
+    x, y, sig = det["x"], det["y"], det["sigma_octave"]
+
+    ori_off = torch.as_tensor(_ORI_OFF, device=dev)
+    radius = (4.5 * ORI_SIG_FCTR * sig)[..., None]         # (B, K, 1)
+    sx = x[..., None] + ori_off[:, 0] * radius             # (B, K, 256)
+    sy = y[..., None] + ori_off[:, 1] * radius
+    angles, avalid = _orientations(
+        *_bilinear_grads(gpack, (S, H, W), plane[..., None], sx, sy))
+
+    sx_d, sy_d = _descriptor_grid(x, y, sig, angles)       # (B, K, 2, 256)
+    gxs_d, gys_d = _bilinear_grads(gpack, (S, H, W), plane[..., None, None],
+                                   sx_d, sy_d)
+    return angles, avalid, _descriptors(gxs_d, gys_d, angles)
 
 
 def _collect_octave(det, angles, avalid, desc, octave_scale: float):
@@ -441,21 +547,30 @@ def _select_top_features(kp, desc, valid, num_features: int,
     return kp_s, desc_s, val_s
 
 
+def _orient_and_describe(gauss: torch.Tensor, det: dict, sample_mode: str):
+    """Orientation + descriptors of one octave's candidates by the sampler
+    `sample_mode` selects: every value but "patch" selects the gather
+    sampler, as in the reference."""
+    if sample_mode == "patch":
+        return _orient_and_describe_patch(gauss, det)
+    return _orient_and_describe_gather(gauss, det)
+
+
 def _octave_pipeline_body(g_b, K: int, contrast_thr: float,
-                          octave_scale: float):
+                          octave_scale: float, sample_mode: str = "patch"):
     """One octave: pyramid, extrema, orientation/descriptor, flatten; also
     returns the next octave's base."""
     gauss = _build_octave_batched(g_b)
     det = _detect_octave(gauss, K, contrast_thr)
-    angles, avalid, desc = _orient_and_describe_patch(gauss, det)
+    angles, avalid, desc = _orient_and_describe(gauss, det, sample_mode)
     kp, desc_o, val = _collect_octave(det, angles, avalid, desc, octave_scale)
     g_next = gauss[:, N_SCALES, ::2, ::2].contiguous()
     return kp, desc_o, val, g_next
 
 
 def _extract_all(imgs, num_octaves: int, k_sched: tuple, contrast_thr: float,
-                 first_octave: int, num_features: int, normalization: str,
-                 transfer_dtype: str, upsample: bool):
+                 first_octave: int, sample_mode: str, num_features: int,
+                 normalization: str, transfer_dtype: str, upsample: bool):
     """The whole batched extraction: base image, all octaves, cross-octave
     top-feature selection."""
     if imgs.dtype == torch.uint8:
@@ -471,7 +586,8 @@ def _extract_all(imgs, num_octaves: int, k_sched: tuple, contrast_thr: float,
     oct_kp, oct_desc, oct_valid = [], [], []
     for o in range(num_octaves):
         kp_o, desc_o, val_o, g = _octave_pipeline_body(
-            g, k_sched[o], contrast_thr, 2.0 ** (o + first_octave))
+            g, k_sched[o], contrast_thr, 2.0 ** (o + first_octave),
+            sample_mode)
         oct_kp.append(kp_o)
         oct_desc.append(desc_o)
         oct_valid.append(val_o)
@@ -492,6 +608,7 @@ class SIFT:
                  upsample: bool = True, normalization: str = "l1_root",
                  contrast_threshold: float = CONTRAST_THRESHOLD,
                  decay_octave_budget: bool = True,
+                 sample_mode: str = "patch",
                  transfer_dtype: str = "float16", device="cuda"):
         self.num_features = num_features
         self.k_per_octave = k_per_octave
@@ -502,6 +619,8 @@ class SIFT:
         self.transfer_dtype = transfer_dtype
         # Halve the candidate budget per octave past the second.
         self.decay_octave_budget = decay_octave_budget
+        # "patch", or for any other value the gather sampler.
+        self.sample_mode = sample_mode
         self.device = torch.device(device)
 
     def extract(self, image: np.ndarray):
@@ -552,7 +671,8 @@ class SIFT:
         num_octaves, k_sched = self._schedule(H0, W0)
         kp_s, desc_s, val_s = _extract_all(
             imgs, num_octaves, k_sched, self.contrast_threshold,
-            first_octave, self.num_features, self.normalization,
+            first_octave, self.sample_mode, self.num_features,
+            self.normalization,
             self.transfer_dtype, self.upsample)
         kp_h = kp_s.float().cpu().numpy()
         desc_h = desc_s.cpu().numpy().astype(np.float32)

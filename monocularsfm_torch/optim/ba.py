@@ -23,11 +23,16 @@ Same algorithm as the reference, written as plain tensor code:
 * `solve_mode="pcg"` caches the coupling blocks W = Jc^T Jp once per LM
   iteration and runs block-Jacobi preconditioned CG on S matrix-free,
   stopping at ||r|| <= pcg_rtol ||rhs|| or `pcg_iters` steps (the
-  reference's cached-block path).  It needs sorted `point_rows`.
+  reference's cached-block path).  Its point sums are `index_add_` over
+  point indices, so `point_rows` may come in any order (the reference
+  routes unsorted rows to its flash path, which solves the same system).
 * The trust-region loop is classic LM radius control as in Ceres.  The
   reference runs it, and CG, as device while-loops; here the host reads
   the LM exit flag once per LM iteration and the CG exit test once per CG
   step (one device sync each), so iteration counts follow the same rules.
+  As in the reference, the loop may run in segments (`dispatch_iters`),
+  each resuming from the state (K, R, t, X, radius, cost, iterations,
+  converged) the last one ended in (`init_state`).
 * With a process `group` the solve is SPMD over a landmark-sharded problem
   (parallel/distributed_ba.py): each rank holds a slab of points and their
   observations, the cameras are replicated, and the camera-side sums (U,
@@ -149,8 +154,12 @@ def _tmm(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
     return (A[..., :, :, None] * B[..., :, None, :]).sum(-3)
 
 
-# Points per one-hot matmul of the dense Schur build.
+# Points per one-hot matmul of the dense Schur build (the default of the
+# `schur_chunk` keyword).
 _SCHUR_CHUNK = 2048
+# The reference's default capacities of its cached-PCG layout.
+_PCG_DEFAULT_MAX_ROWS = 1
+_PCG_DEFAULT_MAX_BLOCKS = 16
 
 
 def _check_device(prob: BundleProblem, device) -> torch.device:
@@ -168,6 +177,35 @@ def _check_device(prob: BundleProblem, device) -> torch.device:
     return dev
 
 
+def _next_pow2(x: int, minimum: int = 1) -> int:
+    cap = minimum
+    while cap < x:
+        cap *= 2
+    return cap
+
+
+def _pcg_capacities(prob: BundleProblem) -> dict[str, int]:
+    """The reference's cached-PCG capacities for this problem
+    (derive_pcg_cached_statics): the most rows of one point and the most
+    128-observation blocks of one camera, each rounded up to a power of
+    two; {} when `point_rows` is unsorted, which that layout cannot take."""
+    obs_cam = prob.obs_cam.cpu().numpy()
+    obs_valid = prob.obs_valid.cpu().numpy()
+    max_rows = 1
+    if prob.point_rows is not None:
+        r = prob.point_rows.cpu().numpy()
+        if np.any(np.diff(r) < 0):
+            return {}
+        real = obs_valid.any(axis=1)
+        if real.any():
+            max_rows = int(np.bincount(r[real]).max())
+    used = obs_cam[obs_valid]
+    per_cam = (int(np.bincount(used, minlength=prob.R.shape[0]).max())
+               if used.size else 1)
+    return {"pcg_max_rows": _next_pow2(max_rows),
+            "pcg_max_blocks": _next_pow2(-(-per_cam // 128))}
+
+
 def bundle_adjust(
     prob: BundleProblem,
     max_iterations: int = 50,
@@ -183,6 +221,12 @@ def bundle_adjust(
     max_lm_diagonal: float = 1e32,
     pcg_rtol: float = 1e-2,
     group=None,
+    dispatch_iters: int | None = None,
+    init_state=None,
+    schur_chunk: int = _SCHUR_CHUNK,
+    pcg_cached: bool = False,
+    pcg_max_rows: int | None = None,
+    pcg_max_blocks: int | None = None,
 ) -> dict[str, Any]:
     """Run LM on `device` (default: where the problem lies).
 
@@ -190,10 +234,89 @@ def bundle_adjust(
     this with its slab of points and the same cameras; the results hold the
     rank's slab of X and the replicated rest.
 
+    `dispatch_iters` runs the solve in segments of at most that many LM
+    iterations, each resuming from the state the last one ended in, until
+    `max_iterations` or convergence; None runs one segment.  The reference
+    sizes its segments from a wall-time model so that one device dispatch
+    stays inside a TPU worker's execution grant; the iterates do not depend
+    on the segments, so neither does the result.  `init_state`, the tuple
+    (K, R, t, X, radius, cost, iterations, converged) of an earlier
+    result, resumes a solve (X is this rank's slab under a group).
+
+    `schur_chunk` is the number of points per one-hot product of the dense
+    Schur build.  `pcg_cached`, `pcg_max_rows` and `pcg_max_blocks` are the
+    reference's cached-PCG layout: this solver has no static capacities,
+    so they change nothing, but they are refused where the reference
+    refuses them (unsorted `point_rows`, capacities below the problem's).
+
     Returns a dict of R, t, X, K, cost_initial, cost_final, rmse_initial,
     rmse_final (per residual component), mean_reproj_error (per
     observation), num_residuals, radius (tensors), iterations (int),
-    converged (bool) and cg_steps (int, the PCG solver's CG steps in all)."""
+    converged (bool) and cg_steps (int, the PCG solver's CG steps in all).
+    cost_initial and rmse_initial are those of the first segment."""
+    if pcg_cached:
+        need = _pcg_capacities(prob)
+        if not need:
+            raise ValueError("pcg_cached=True requires sorted point_rows")
+        for k, have in (("pcg_max_rows", pcg_max_rows),
+                        ("pcg_max_blocks", pcg_max_blocks)):
+            if have is None:
+                have = {"pcg_max_rows": _PCG_DEFAULT_MAX_ROWS,
+                        "pcg_max_blocks": _PCG_DEFAULT_MAX_BLOCKS}[k]
+            if have < need[k]:
+                raise ValueError(
+                    f"{k}={have} too small for this problem (needs "
+                    f">= {need[k]}); pass none to derive automatically")
+    if dispatch_iters is not None and dispatch_iters < 1:
+        raise ValueError(f"dispatch_iters must be >= 1, got {dispatch_iters}")
+    kw = dict(device=device, function_tolerance=function_tolerance,
+              parameter_tolerance=parameter_tolerance,
+              gradient_tolerance=gradient_tolerance,
+              initial_radius=initial_radius, solve_mode=solve_mode,
+              pcg_iters=pcg_iters, refine_focal=refine_focal,
+              min_lm_diagonal=min_lm_diagonal, max_lm_diagonal=max_lm_diagonal,
+              pcg_rtol=pcg_rtol, group=group, schur_chunk=schur_chunk)
+    state, first, cg_steps = init_state, None, 0
+    while True:
+        if dispatch_iters is None:
+            limit = max_iterations
+        else:
+            start = 0 if state is None else int(state[6])
+            limit = min(start + dispatch_iters, max_iterations)
+        out = _lm_segment(prob, limit, state, **kw)
+        cg_steps += out["cg_steps"]
+        if first is None:
+            first = out
+        if out["iterations"] >= max_iterations or out["converged"]:
+            break
+        state = tuple(out[k] for k in ("K", "R", "t", "X", "radius",
+                                       "cost_final", "iterations", "converged"))
+    out.update(cost_initial=first["cost_initial"],
+               rmse_initial=first["rmse_initial"], cg_steps=cg_steps)
+    return out
+
+
+def _lm_segment(
+    prob: BundleProblem,
+    max_iterations: int,
+    init_state,
+    device,
+    function_tolerance: float,
+    parameter_tolerance: float,
+    gradient_tolerance: float,
+    initial_radius: float,
+    solve_mode: str,
+    pcg_iters: int,
+    refine_focal: bool,
+    min_lm_diagonal: float,
+    max_lm_diagonal: float,
+    pcg_rtol: float,
+    group,
+    schur_chunk: int,
+) -> dict[str, Any]:
+    """LM iterations until the absolute iteration count `max_iterations` or
+    convergence, from `init_state` or, when it is None, from the problem's
+    state at `initial_radius`."""
     _check_device(prob, device)
     if solve_mode not in ("dense", "pcg"):
         raise ValueError(f"unknown solve_mode {solve_mode!r}")
@@ -206,10 +329,6 @@ def bundle_adjust(
         raise ValueError(
             "dense Schur requires the identity point_rows map (one row per "
             "point); build the problem unsplit or use solve_mode='pcg'")
-    if rows is not None and rows.numel() > 1 and bool((rows[1:] < rows[:-1]).any()):
-        raise ValueError(
-            "the PCG solver needs sorted point_rows (the map's BA bridge "
-            "builds them sorted)")
 
     f32 = torch.float32
     dev = prob.R.device
@@ -305,7 +424,7 @@ def bundle_adjust(
     def apply_step(R, t, X, dc, dp):
         return (angle_axis_to_matrix(dc[:, :3]) @ R, t + dc[:, 3:], X + dp)
 
-    chunk = min(_SCHUR_CHUNK, P)
+    chunk = min(schur_chunk, P)
     cam_rows = prob.obs_cam                                  # (P, T)
 
     def dense_solve(U_d, Vinv, W, g_c, g_p, focal, lam):
@@ -468,11 +587,17 @@ def bundle_adjust(
         return cost, new_cost, pred, K, R_new, t_new, X_new, step_sq, g_inf, k
 
     try_step = try_step_dense if solve_mode == "dense" else try_step_pcg
-    K, R, t, X = prob.K, prob.R, prob.t, prob.X
-    num_res, cost0 = psum(num_res, cost_of(K, R, t, X))
-    cost = cost0
-    radius = torch.tensor(initial_radius, dtype=f32, device=dev)
-    it, done, cg_steps = 0, False, 0
+    num_res, cost0 = psum(num_res, cost_of(prob.K, prob.R, prob.t, prob.X))
+    if init_state is None:
+        K, R, t, X = prob.K, prob.R, prob.t, prob.X
+        radius, cost, it, done = initial_radius, cost0, 0, False
+    else:
+        K, R, t, X = (torch.as_tensor(v, dtype=f32, device=dev)
+                      for v in init_state[:4])
+        radius, cost, it, done = init_state[4:]
+    radius = torch.as_tensor(radius, dtype=f32, device=dev)
+    cost = torch.as_tensor(cost, dtype=f32, device=dev)
+    it, done, cg_steps = int(it), bool(done), 0
     while it < max_iterations and not done:
         (cost_cur, new_cost, pred, K_new, R_new, t_new, X_new, step_sq,
          g_inf, k) = try_step(K, R, t, X, 1.0 / radius)

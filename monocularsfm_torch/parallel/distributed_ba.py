@@ -8,10 +8,12 @@ camera-side sums are all-reduced over the mesh's group, the camera solve
 runs identically on every rank, and the point back-substitution stays
 local (optim/ba.py with `group`).
 
-The JAX package runs the optimisation in bounded device dispatches
-(`dispatch_iters`); the port's solver is host-driven by nature, so there
-is no counterpart.  Across processes JAX leaves X sharded; here X is
-gathered on every rank, because the controller's map needs it.
+As in the reference, `dispatch_iters` runs the optimisation in segments
+that carry the solver state, each rank's slab of X included, from one to
+the next; every rank decides whether to go on from the same reduced
+iteration count and convergence flag, so the ranks stay in step.  Across
+processes JAX leaves X sharded; here X is gathered on every rank, because
+the controller's map needs it.
 """
 
 from __future__ import annotations
@@ -40,8 +42,10 @@ def _pad_points(prob: BundleProblem, multiple: int) -> BundleProblem:
 
 def distributed_bundle_adjust(prob: BundleProblem, mesh,
                               max_iterations: int = 50,
-                              solve_mode: str = "dense", **kwargs):
-    """Run LM with the points sharded over `mesh`'s ranks.
+                              solve_mode: str = "dense",
+                              dispatch_iters: int | None = None, **kwargs):
+    """Run LM with the points sharded over `mesh`'s ranks, in segments of
+    at most `dispatch_iters` LM iterations (None: one segment).
 
     SPMD: every rank calls this with the same `prob` (on any device; each
     rank moves its slab to its own).  Returns bundle_adjust's dict on every
@@ -59,6 +63,6 @@ def distributed_bundle_adjust(prob: BundleProblem, mesh,
         f: getattr(prob, f)[rank * s:(rank + 1) * s] for f in _POINT_FIELDS})
     out = bundle_adjust(local.to(dev), max_iterations=max_iterations,
                         device=dev, solve_mode=solve_mode, group=group,
-                        **kwargs)
+                        dispatch_iters=dispatch_iters, **kwargs)
     out["X"] = all_gather(out["X"], group)[:n_points]
     return out

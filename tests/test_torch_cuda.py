@@ -316,6 +316,52 @@ def test_bundle_adjust_on_the_card_matches_the_cpu(dev, mode):
         bundle_adjust(prob, device=dev, **kw)
 
 
+def test_bundle_adjust_in_segments_on_the_card(dev):
+    """dispatch_iters on the card: the segments end where one segment ends,
+    and PCG takes the split rows in any order (rmse within 1e-4)."""
+    from monocularsfm_torch.optim import bundle_adjust
+
+    prob = _ring(split=True).to(dev)
+    kw = dict(max_iterations=6, solve_mode="pcg", pcg_iters=20,
+              function_tolerance=0.0, parameter_tolerance=0.0,
+              gradient_tolerance=0.0)
+    mono = bundle_adjust(prob, **kw)
+    seg = bundle_adjust(prob, dispatch_iters=2, **kw)
+    perm = torch.randperm(prob.obs_cam.shape[0],
+                          generator=torch.Generator().manual_seed(0)).to(dev)
+    shuffled = bundle_adjust(type(prob)(**dict(prob.tensors(), **{
+        f: getattr(prob, f)[perm]
+        for f in ("obs_cam", "obs_uv", "obs_valid", "point_rows")})), **kw)
+    assert seg["iterations"] == mono["iterations"] == 6
+    a = float(mono["rmse_final"])
+    for other in (seg, shuffled):
+        assert abs(float(other["rmse_final"]) - a) <= 1e-4 * a
+
+
+def test_gather_sift_on_the_card_matches_the_cpu(dev):
+    """SIFT's gather sampler (sample_mode "gather") on one 320x240 render:
+    the card's keypoints within 1% in count, 99% of the CPU's within 0.01
+    px and 0.5 degrees, their descriptors within 2e-3; the pyramid went
+    through the fused blur kernel."""
+    from monocularsfm_torch.ops.sift import SIFT
+    from monocularsfm_torch.utils.synthetic import render_textured_images
+
+    img = render_textured_images(num_cameras=1, width=320, height=240,
+                                 scene_seed=5)[0][0]
+    kc, dc = SIFT(num_features=512, sample_mode="gather", device="cpu").extract(img)
+    blur.reset_launches()
+    kg, dg = SIFT(num_features=512, sample_mode="gather", device=dev).extract(img)
+    assert blur.LAUNCHES["blur_vh"] > 0
+    assert len(kc) > 300 and abs(len(kg) - len(kc)) <= 0.01 * len(kc)
+    dxy = np.abs(kc[:, None, :2] - kg[None, :, :2]).max(-1)
+    dang = np.abs((kc[:, None, 3] - kg[None, :, 3] + 180.0) % 360.0 - 180.0)
+    cost = dxy + (dang > 0.5) * 1e3
+    j = cost.argmin(1)
+    ok = cost[np.arange(len(kc)), j] < 0.01
+    assert ok.mean() >= 0.99
+    assert np.abs(dc[ok] - dg[j[ok]]).max() < 2e-3
+
+
 @pytest.mark.parametrize("method", ["p3p", "ap3p", "p6p", "upnp", "epnp"])
 def test_pnp_on_the_card_matches_the_cpu(dev, method):
     """The same draws on both devices: the same winner after the polish.

@@ -230,6 +230,20 @@ def test_homography_and_decomposition_match_reference():
     np.testing.assert_array_equal(to[5][bt].numpy(), _j(jo[5][bj]))
 
 
+def test_symmetric_transfer_error_matches_reference():
+    rng = np.random.default_rng(9)
+    H = np.eye(3) + rng.normal(scale=[[0.05, 0.05, 8.0], [0.05, 0.05, 8.0],
+                                      [1e-4, 1e-4, 0.01]], size=(4, 3, 3))
+    H = H.astype(np.float32)
+    Hinv = np.linalg.inv(H).astype(np.float32)
+    x1 = rng.uniform(0, 640, size=(4, 50, 2)).astype(np.float32)
+    x2 = x1 + rng.normal(scale=3.0, size=x1.shape).astype(np.float32)
+    ref = _j(JH.symmetric_transfer_error(*map(jnp.asarray, (H, Hinv, x1, x2))))
+    out = TH.symmetric_transfer_error(*map(_t, (H, Hinv, x1, x2))).numpy()
+    assert out.shape == ref.shape == (4, 50) and ref.min() > 0
+    np.testing.assert_allclose(out, ref, rtol=1e-5)
+
+
 def test_epnp_ransac_matches_reference():
     rng = np.random.default_rng(6)
     n, cap, M = 300, 512, 256

@@ -19,6 +19,9 @@ PORT_RMSE_TOL, PORT_R_TOL = 1e-4, 1e-3
 JAX_RMSE_TOL, JAX_R_TOL = 5e-3, 5e-3
 PCG_TOL = 1e-2
 ITERS, PCG_ITERS, PCG_INNER = 30, 20, 60
+# Segmented against one segment: tests/test_parallel.py's problem and rule.
+SEG_ITERS, SEG_STEP, SEG_TOL = 12, 3, 1e-3
+SEGMENTED = {"dense": {}, "pcg": dict(solve_mode="pcg", pcg_iters=40)}
 STEP = "monocularsfm_torch.parallel.dryrun:ba"
 WORLD_TIMEOUT = 60.0
 
@@ -54,11 +57,16 @@ def problems(ring_scene):
 
 @pytest.fixture(scope="module")
 def worlds(problems):
-    """Every rank's results: world 2 solves the dense problem; world 4 the
-    dense, the PCG and the 403-point problems and the split-row refusal."""
+    """Every rank's results: world 2 solves the dense problem, then the
+    PCG problem in each solver as one segment and in segments of SEG_STEP
+    LM iterations; world 4 the dense, the PCG and the 403-point problems
+    and the split-row refusal."""
     dense = _arrays(problems["dense"])
-    w2 = spawn(2, [(STEP, (dense, "cpu"), dict(max_iterations=ITERS))],
-               timeout=WORLD_TIMEOUT)
+    w2 = spawn(2, [(STEP, (dense, "cpu"), dict(max_iterations=ITERS))] + [
+        (STEP, (_arrays(problems["pcg"]), "cpu"),
+         dict(max_iterations=SEG_ITERS, dispatch_iters=step, **kw))
+        for kw in SEGMENTED.values() for step in (SEG_ITERS, SEG_STEP)],
+        timeout=WORLD_TIMEOUT)
     w4 = spawn(4, [
         (STEP, (dense, "cpu"), dict(max_iterations=ITERS)),
         (STEP, (_arrays(problems["pcg"]), "cpu"),
@@ -114,6 +122,21 @@ def test_pcg_matches_port_and_jax(worlds, problems):
     ref = jax_dist(problems["pcg"], jax_mesh(4), **kw)
     for other in (float(single["rmse_final"]), float(ref["rmse_final"])):
         assert abs(float(dist["rmse_final"]) - other) < PCG_TOL
+
+
+@pytest.mark.parametrize("mode", list(SEGMENTED))
+def test_segmented_continuation_matches_monolithic(worlds, mode):
+    """dispatch_iters under the group: the segments carry each rank's slab
+    of the state, every rank stops with the others, and the result is the
+    one-segment solve's (tests/test_parallel.py's rule; here they are
+    equal, since the segments walk the same iterates)."""
+    i = 1 + 2 * list(SEGMENTED).index(mode)
+    for rank in worlds[2]:
+        mono, seg = rank[i], rank[i + 1]
+        assert seg["iterations"] == mono["iterations"] > SEG_STEP
+        assert abs(float(seg["rmse_final"]) - float(mono["rmse_final"])) < SEG_TOL
+        np.testing.assert_allclose(seg["R"], mono["R"], atol=SEG_TOL)
+        np.testing.assert_array_equal(seg["X"], worlds[2][0][i + 1]["X"])
 
 
 def test_point_count_not_divisible(worlds, problems):

@@ -110,20 +110,27 @@ def test_measure_3200_prints_its_line():
 
 
 def test_profile_sift_prints_its_stages():
+    """Both sampling modes (the default --modes), each with its stage
+    lines, its sums and its numbers under "modes"; the two select the same
+    octave schedule."""
     res = _run("profile_sift_torch.py", "--device", "cpu", "--width", 320,
                "--height", 240, "--batch", 1, "--reps", 1)
     assert res.returncode == 0, res.stderr[-3000:]
     lines = res.stdout.strip().splitlines()
     for stage in ("base", "oct0.pyr", "oct0.detect", "oct0.orient_desc",
-                  "oct1.next_base", "select", "SUM:"):
+                  "oct1.next_base", "select", "SUM [gather]:", "SUM [patch]:",
+                  "--- gather", "--- patch"):
         assert any(line.startswith(stage) for line in lines), stage
     r = _last_json(res.stdout)
     assert r["k_sched"][0] == 4096 and len(r["k_sched"]) >= 4
-    assert set(r["groups_ms"]) == {"base", "pyr", "next_base", "detect",
-                                   "orient_desc", "select"}
-    assert r["total_ms"] == pytest.approx(sum(r["stages_ms"].values()))
-    assert r["top_k_ms"]["oct0.detect"] > 0
-    assert r["launches"] == {} and r["idle_share"] is None   # card only
+    assert list(r["modes"]) == ["gather", "patch"]
+    for m in r["modes"].values():
+        assert set(m["groups_ms"]) == {"base", "pyr", "next_base", "detect",
+                                       "orient_desc", "select"}
+        assert m["total_ms"] == pytest.approx(sum(m["stages_ms"].values()))
+        assert m["top_k_ms"]["oct0.detect"] > 0
+        assert m["launches"] == {} and m["idle_share"] is None   # card only
+        assert m["peak_memory_bytes"] is None and min(m["keypoints"]) > 300
 
 
 @pytest.mark.parametrize("tool", ["scale_run_torch.py", "measure_3200_torch.py",

@@ -1,22 +1,25 @@
-"""Per-stage time of the port's SIFT extraction (patch mode).
+"""Per-stage time of the port's SIFT extraction, per sampling mode.
 
-The PyTorch counterpart of tools/profile_sift.py.  Runs the stages of
-`SIFT.extract_batch` one at a time on a batch of rendered views: the base
-image (2x upsample and base blur), then per octave the Gaussian stack
-(`_build_octave_batched`), detection (`_detect_octave`, with its exact
-top-k sort timed apart) and orientation with descriptors
-(`_orient_and_describe_patch` and `_collect_octave`), and last the
-cross-octave selection (`_select_top_features`).  On the card each stage
+The PyTorch counterpart of tools/profile_sift.py.  For each of `--modes`
+(SIFT's `sample_mode`: "gather" and "patch" by default, as in the JAX
+tool) it runs the stages of `SIFT.extract_batch` one at a time on a batch
+of rendered views: the base image (2x upsample and base blur), then per
+octave the Gaussian stack (`_build_octave_batched`), detection
+(`_detect_octave`, with its exact top-k sort timed apart) and orientation
+with descriptors (`_orient_and_describe` in the mode's sampler, and
+`_collect_octave`), and last the cross-octave selection
+(`_select_top_features`).  On the card each stage
 is timed by CUDA events and waited for before the next starts; on the CPU
 by the host clock.  On the card one more pass runs each stage under
 torch.profiler, for its kernel launches and the card's busy time, so the
 stage's idle share is 1 - busy / time.
 
 Usage: python tools/profile_sift_torch.py [--width 1280 --height 960
-       --batch 4] [--reps 2] [--device cuda]
+       --batch 4] [--reps 2] [--modes gather,patch] [--device cuda]
        python tools/profile_sift_torch.py --width 3200 --height 2400 --batch 1
 
-Prints one line per stage and, last, one JSON object of every number.
+Prints one line per stage of each mode and, last, one JSON object of every
+number, each mode's under "modes".
 """
 
 from __future__ import annotations
@@ -122,7 +125,8 @@ def run_stages(ex, imgs_t, clock):
                         ex.contrast_threshold)
 
         def orient(gauss=gauss, det=det, o=o):
-            angles, avalid, desc = S._orient_and_describe_patch(gauss, det)
+            angles, avalid, desc = S._orient_and_describe(gauss, det,
+                                                          ex.sample_mode)
             return S._collect_octave(det, angles, avalid, desc, 2.0 ** (o - 1))
 
         kp, desc, val = clock.run(f"oct{o}.orient_desc", orient)
@@ -135,50 +139,39 @@ def run_stages(ex, imgs_t, clock):
     return val_s.sum(1).tolist(), list(k_sched)
 
 
-def main(argv=None):
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--width", type=int, default=1280)
-    ap.add_argument("--height", type=int, default=960)
-    ap.add_argument("--batch", type=int, default=4)
-    ap.add_argument("--reps", type=int, default=2)
-    ap.add_argument("--device", default="cuda")
-    args = ap.parse_args(argv)
-
+def profile_mode(ex, imgs, imgs_t, reps_n, dev):
+    """One sampling mode: the first extract_batch (which builds the kernels
+    and gives the reference counts), `reps_n` timed passes of the stages
+    and, on the card, one profiled pass.  Prints the stage lines and
+    returns the mode's numbers."""
     import torch
 
     from monocularsfm_torch.ops import sift as S
-    from monocularsfm_torch.reconstruction.map_builder import resolve_device
-    from monocularsfm_torch.utils.card import card_line, sync
-    from monocularsfm_torch.utils.synthetic import render_textured_images
+    from monocularsfm_torch.utils.card import sync
 
-    dev = resolve_device(args.device)
-    card = card_line(dev)
-    imgs, _, _, _ = render_textured_images(
-        scene_seed=5, num_cameras=args.batch, width=args.width, height=args.height)
-    print(f"device={dev.type} card={card} imgs={imgs.shape}", flush=True)
-    ex = S.SIFT(device=dev)
-    sync(dev)
-    t0 = time.perf_counter()
-    kps, _ = ex.extract_batch(imgs)     # builds the kernels; the reference counts
-    wall = time.perf_counter() - t0
-    print(f"extract_batch (first call): {wall:.3f}s  feats={[len(k) for k in kps]}",
-          flush=True)
+    mode = ex.sample_mode
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
-
-    imgs_t = torch.from_numpy(np.asarray(imgs)).to(dev).float() / 255.0
+    sync(dev)
+    t0 = time.perf_counter()
+    kps, _ = ex.extract_batch(imgs)
+    wall = time.perf_counter() - t0
+    print(f"[{mode}] extract_batch (first call): {wall:.3f}s  "
+          f"feats={[len(k) for k in kps]}", flush=True)
     sort = S._top_k
     reps = []
+    launches, busy = {}, {}
     try:
         with torch.no_grad():
-            for r in range(args.reps + (dev.type == "cuda")):
-                profiled = r == args.reps           # the last pass, on the card
+            for r in range(reps_n + (dev.type == "cuda")):
+                profiled = r == reps_n              # the last pass, on the card
                 clock = StageClock(dev, profiled=profiled)
                 S._top_k = clock.top_k(sort)
                 counts, k_sched = run_stages(ex, imgs_t, clock)
                 if counts != [len(k) for k in kps]:
-                    raise RuntimeError(f"stages selected {counts} keypoints, "
-                                       f"extract_batch {[len(k) for k in kps]}")
+                    raise RuntimeError(f"[{mode}] stages selected {counts} "
+                                       f"keypoints, extract_batch "
+                                       f"{[len(k) for k in kps]}")
                 if profiled:
                     launches, busy = clock.launches, clock.busy_ms
                 else:
@@ -192,10 +185,7 @@ def main(argv=None):
     ms = {n: float(np.median([r[0][n] for r in reps])) for n in names}
     top_k_ms = {n: float(np.median([r[1].get(n, 0.0) for r in reps]))
                 for n in names if n in reps[0][1]}
-    if dev.type != "cuda":
-        launches, busy = {}, {}
-    print(f"--- {args.width}x{args.height} batch {args.batch}, median of "
-          f"{len(reps)} reps (ms) ---", flush=True)
+    print(f"--- {mode}: median of {len(reps)} reps (ms) ---", flush=True)
     for n in names:
         extra = f"  top_k {top_k_ms[n]:8.2f}" if n in top_k_ms else ""
         if n in launches:
@@ -205,17 +195,48 @@ def main(argv=None):
     total = sum(ms.values())
     groups = {g: sum(v for n, v in ms.items() if n.split(".")[-1] == g)
               for g in ("base", "pyr", "next_base", "detect", "orient_desc", "select")}
-    print("SUM: " + "  ".join(f"{g} {v:.2f}" for g, v in groups.items())
+    print(f"SUM [{mode}]: " + "  ".join(f"{g} {v:.2f}" for g, v in groups.items())
           + f"  total {total:.2f} ms", flush=True)
-    print(json.dumps({
-        "image": f"{args.width}x{args.height}", "batch": args.batch,
-        "device": dev.type, "card": card, "first_extract_batch_s": wall,
-        "k_sched": k_sched, "stages_ms": ms, "top_k_ms": top_k_ms,
-        "groups_ms": groups, "total_ms": total,
-        "launches": launches, "busy_ms": busy,
+    return k_sched, {
+        "first_extract_batch_s": wall, "keypoints": [len(k) for k in kps],
+        "stages_ms": ms, "top_k_ms": top_k_ms, "groups_ms": groups,
+        "total_ms": total, "launches": launches, "busy_ms": busy,
         "launches_total": sum(launches.values()) if launches else None,
         "idle_share": (1 - sum(busy.values()) / total) if busy else None,
         "peak_memory_bytes": peak,
+    }
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--width", type=int, default=1280)
+    ap.add_argument("--height", type=int, default=960)
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--reps", type=int, default=2)
+    ap.add_argument("--modes", default="gather,patch")
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+
+    import torch
+
+    from monocularsfm_torch.ops import sift as S
+    from monocularsfm_torch.reconstruction.map_builder import resolve_device
+    from monocularsfm_torch.utils.card import card_line
+    from monocularsfm_torch.utils.synthetic import render_textured_images
+
+    dev = resolve_device(args.device)
+    card = card_line(dev)
+    imgs, _, _, _ = render_textured_images(
+        scene_seed=5, num_cameras=args.batch, width=args.width, height=args.height)
+    print(f"device={dev.type} card={card} imgs={imgs.shape}", flush=True)
+    imgs_t = torch.from_numpy(np.asarray(imgs)).to(dev).float() / 255.0
+    modes = {}
+    for mode in args.modes.split(","):
+        k_sched, modes[mode] = profile_mode(
+            S.SIFT(sample_mode=mode, device=dev), imgs, imgs_t, args.reps, dev)
+    print(json.dumps({
+        "image": f"{args.width}x{args.height}", "batch": args.batch,
+        "device": dev.type, "card": card, "k_sched": k_sched, "modes": modes,
     }), flush=True)
     return 0
 
