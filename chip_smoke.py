@@ -19,7 +19,9 @@ the same solve on the CPU) and the PCG solver on a 1024-camera /
 against the plain matcher on the card, the entry point's solve on the
 card against the CPU, and `bench_torch.run_all()` at full shape (dense
 and PCG BA, SIFT on four 1280x960 renders, 64 single-pair matches), whose
-four rates it prints on a line of their own.  Then `sfm-torch pipeline` (extract,
+four rates it prints on a line of their own, then the single-pair matcher
+on five pairs of unequal capacities (8192 x 512 to 1024 x 512, one launch
+each) against the plain matcher.  Then `sfm-torch pipeline` (extract,
 match, reconstruct, export) on 56 rendered 1280x960 views of a
 multi-plane scene, checked against the true poses, with dense and PCG
 global bundle adjustments (the event log names each one's solver).  Then a second
@@ -130,6 +132,12 @@ PAR_TIMEOUT = 300.0
 # point's solve on the card against the CPU.
 BENCH_PAIRS = 4
 ENTRY_RTOL = 1e-4
+# The single-pair matcher on rectangular pairs (N_A, N_B): the first rows of
+# two of bench_torch's banks, side A's mask 90% valid.  Where at least half
+# of A's rows have their partner in B, at least RECT_MATCHED of them match.
+RECT_SHAPES = ((8192, 512), (512, 8192), (8192, 4096), (4096, 8192), (1024, 512))
+RECT_HALF_SHAPES = ((8192, 4096), (4096, 8192))
+RECT_MATCHED = 0.3
 # SIFT's gather sampler (sample_mode "gather", phase_gather): the slice's
 # 4-image 1280x960 batch and one 3200x2400 image in both modes; gather
 # against patch under the reference's rule (tests/test_sift.py): of the
@@ -557,24 +565,90 @@ def phase_ba_pcg(dev, dense_rmse):
             "ba_pcg_vs_dense_rmse_diff": diff}
 
 
-def _pair_unchecked(a, b, ma, mb, pair01):
+def _pair_unchecked(a, b, ma, mb, pair00):
     """match_descriptors_pair_auto without match_tile_partials' input checks
     (whose pair_ids range test waits for the card twice per call): the same
-    bank, launch, merge and decision."""
+    two one-image banks, launch, merge and decision."""
     from monocularsfm_torch.ops import match_kernel
     from monocularsfm_torch.ops.matching import _decide
 
-    bank = torch.stack([a.to(torch.bfloat16), b.to(torch.bfloat16)])
-    N, G = bank.shape[1], bank.shape[1] // match_kernel.TILE
-    f32 = dict(device=bank.device, dtype=torch.float32)
-    i32 = dict(device=bank.device, dtype=torch.int32)
-    rows = (torch.empty((1, N), **f32), torch.empty((1, N), **i32),
-            torch.empty((1, N), **f32))
-    cols = (torch.empty((1, G, N), **f32), torch.empty((1, G, N), **i32),
-            torch.empty((1, G, N), **f32))
-    match_kernel.launch(bank, torch.stack([ma, mb]), pair01, rows, cols)
-    stats = rows + match_kernel._merge_partials(*cols)
-    return _decide(ma[None], stats, 0.8, 0.7, True)[0]
+    A, B = a.to(torch.bfloat16)[None], b.to(torch.bfloat16)[None]
+    N_a, N_b, G = A.shape[1], B.shape[1], A.shape[1] // match_kernel.TILE
+    f32 = dict(device=A.device, dtype=torch.float32)
+    i32 = dict(device=A.device, dtype=torch.int32)
+    rows = (torch.empty((1, N_a), **f32), torch.empty((1, N_a), **i32),
+            torch.empty((1, N_a), **f32))
+    cols = (torch.empty((1, G, N_b), **f32), torch.empty((1, G, N_b), **i32),
+            torch.empty((1, G, N_b), **f32))
+    match_kernel.launch(A, ma[None], pair00, rows, cols, B, mb[None])
+    stats = tuple(x[0] for x in rows + match_kernel._merge_partials(*cols))
+    return _decide(ma, stats, 0.8, 0.7, True)
+
+
+def check_rectangular(dev, descs, pair00):
+    """The single-pair matcher at each of RECT_SHAPES on the card: one launch
+    of kernel 3 per call, idx_b against the plain matcher, the six
+    statistics against the plain ones, the unchecked call equal; then the
+    kernel at P = 1 timed beside its bound, the plain statistics, the bf16
+    product and the whole call.  Returns {"NAxNB": numbers}."""
+    from monocularsfm_torch.ops import match_kernel
+    from monocularsfm_torch.ops.matching import (
+        match_descriptors_pair,
+        match_descriptors_pair_auto,
+    )
+    from monocularsfm_torch.utils import roofline
+
+    rng = np.random.default_rng(SEED)
+    out = {}
+    for n_a, n_b in RECT_SHAPES:
+        a, b = descs[0][:n_a], descs[1][:n_b]
+        ma = torch.from_numpy(rng.random(n_a) < 0.9).to(dev)
+        mb = torch.ones(n_b, dtype=torch.bool, device=dev)
+        match_kernel.reset_launches()
+        k = match_descriptors_pair_auto(a, b, ma, mb)
+        torch.cuda.synchronize()
+        launches = match_kernel.LAUNCHES["match_tile"]
+        p = match_descriptors_pair(a, b, ma, mb)
+        sk = match_kernel.match_stats_pair(a, b, ma, mb)
+        sp = match_kernel.match_stats_plain(a, b, ma, mb)
+        r = dict(
+            grid=[n_a // match_kernel.TILE, 1], tiles_per_cta=n_b // match_kernel.TILE,
+            launches_per_call=launches,
+            index_agreement=(k == p).float().mean().item(),
+            matched_share=(k >= 0).float().mean().item(),
+            max_abs_err=max((x - y).abs().max().item()
+                            for x, y in zip(sk, sp) if x.dtype == torch.float32),
+            argmax_agreement=min((sk[i] == sp[i]).float().mean().item() for i in (1, 4)),
+            unchecked_equal=bool((_pair_unchecked(a, b, ma, mb, pair00) == k).all()))
+        matched_min = RECT_MATCHED if (n_a, n_b) in RECT_HALF_SHAPES else 0.0
+        if not (launches == 1 and r["index_agreement"] >= MATCH_AGREE
+                and r["argmax_agreement"] >= MATCH_AGREE and r["max_abs_err"] <= SIM_TOL
+                and r["matched_share"] > matched_min and r["unchecked_equal"]):
+            fail(f"rectangular pair ({n_a}, {n_b}): {r} (need one launch, "
+                 f"agreement >= {MATCH_AGREE}, sim err <= {SIM_TOL}, matched "
+                 f"share > {matched_min}, the unchecked call equal)")
+        A, B = a.to(torch.bfloat16)[None], b.to(torch.bfloat16)[None]
+        ma1, mb1 = ma[None], mb[None]
+        rows, cols = match_kernel.match_tile_partials(A, ma1, pair00, B, mb1)
+        r.update(
+            ms=time_ms(lambda: match_kernel.launch(A, ma1, pair00, rows, cols, B, mb1), 20),
+            plain_ms=time_ms(lambda: match_kernel.match_stats_plain(a, b, ma, mb), 3),
+            library_ms=time_ms(lambda: A[0] @ B[0].T, 20),
+            call_ms=time_ms(lambda: match_descriptors_pair_auto(a, b, ma, mb), 20))
+        nbytes, ops = roofline.match_work([int(ma.sum()), n_b], [(0, 1)], n_a, N_b=n_b)
+        r["bound_ms"], r["bound_by"] = roofline.bound(nbytes, ops, "bf16")
+        r["bound_share"] = r["bound_ms"] / r["ms"]
+        log(f"[bench] (e) ({n_a}, {n_b}): kernel {r['ms']:.4f} ms (grid "
+            f"{r['grid'][0]} x 1, {r['tiles_per_cta']} B tiles per CTA), bound "
+            f"{r['bound_ms']:.5f} ms ({r['bound_by']}, share {r['bound_share']:.3f}), "
+            f"plain {r['plain_ms']:.3f} ms, bf16 mm of the product alone (not the "
+            f"same function) {r['library_ms']:.4f} ms, whole call "
+            f"{r['call_ms']:.4f} ms; idx agreement {r['index_agreement']:.6f}, "
+            f"matched share {r['matched_share']:.3f}, sim err {r['max_abs_err']:.3g}, "
+            f"argmax agreement {r['argmax_agreement']:.6f}, launches {launches}")
+        out[f"{n_a}x{n_b}"] = r
+    out["library_is"] = "bf16 torch.mm of the one product, not the same function"
+    return out
 
 
 def phase_bench(dev):
@@ -585,7 +659,10 @@ def phase_bench(dev):
     `entry("cpu")`'s; (c) `bench_torch.run_all()` at full shape on the
     card (no CPU baselines), its kernels counted; (d) kernel 3 at P = 1
     timed beside its bound, plain version and the bf16 product, and the
-    whole call with and without the input checks' host waits."""
+    whole call with and without the input checks' host waits; (e) the
+    single-pair matcher on rectangular pairs (`check_rectangular`).  The
+    square pair's statistics through one bank and through two one-image
+    banks are equal bit for bit."""
     import bench_torch
     from monocularsfm_torch import entry as E
     from monocularsfm_torch.ops import blur, match_kernel
@@ -610,21 +687,25 @@ def phase_bench(dev):
     bank = torch.stack(descs[:2]).to(torch.bfloat16)
     mask2 = torch.ones((2, MATCH_CAP), dtype=torch.bool, device=dev)
     pair01 = torch.tensor([[0, 1]], dtype=torch.int32, device=dev)
+    pair00 = torch.zeros((1, 2), dtype=torch.int32, device=dev)
     sk = match_kernel.match_stats(bank, mask2, pair01)
     sp = match_kernel.match_stats_plain_batch(bank, mask2, pair01)
     sim_err = max((x - y).abs().max().item()
                   for x, y in zip(sk, sp) if x.dtype == torch.float32)
     arg_agree = min((sk[i] == sp[i]).float().mean().item() for i in (1, 4))
-    same = (_pair_unchecked(descs[0], descs[1], mask, mask, pair01)
+    same = (_pair_unchecked(descs[0], descs[1], mask, mask, pair00)
             == match_descriptors_pair_auto(descs[0], descs[1], mask, mask)).all().item()
+    two_sided = match_kernel.match_stats_pair(descs[0], descs[1], mask, mask)
+    bank_equal = all(torch.equal(x[0], y) for x, y in zip(sk, two_sided))
     log(f"[bench] (a) single pair, cap {MATCH_CAP}: idx agreement with plain "
         f"{agree}, matched share {matched}; statistics sim err {sim_err:.3g}, "
-        f"argmax agreement {arg_agree:.6f}; unchecked call equal {same}")
+        f"argmax agreement {arg_agree:.6f}; unchecked call equal {same}; one "
+        f"bank equal to two one-image banks {bank_equal}")
     if not (min(agree) >= MATCH_AGREE and arg_agree >= MATCH_AGREE
-            and sim_err <= SIM_TOL and min(matched) > 0.5 and same):
+            and sim_err <= SIM_TOL and min(matched) > 0.5 and same and bank_equal):
         fail(f"single-pair matcher disagrees: idx agreement {agree}, argmax "
              f"agreement {arg_agree}, sim err {sim_err}, matched {matched}, "
-             f"unchecked equal {same}")
+             f"unchecked equal {same}, one bank equal to two {bank_equal}")
 
     fn, (prob,) = E.entry(dev)
     out = fn(prob)
@@ -675,7 +756,7 @@ def phase_bench(dev):
         plain_ms=time_ms(lambda: match_kernel.match_stats_plain_batch(bank, mask2, pair01), 3),
         library_ms=time_ms(lambda: bank[0] @ bank[1].T, 20),
         auto_call_ms=time_ms(lambda: match_descriptors_pair_auto(a, b, mask, mask), 20),
-        unchecked_call_ms=time_ms(lambda: _pair_unchecked(a, b, mask, mask, pair01), 20),
+        unchecked_call_ms=time_ms(lambda: _pair_unchecked(a, b, mask, mask, pair00), 20),
     )
     nbytes, ops = roofline.match_work([MATCH_CAP, MATCH_CAP], [(0, 1)], MATCH_CAP)
     t["bound_ms"], t["bound_by"] = roofline.bound(nbytes, ops, "bf16")
@@ -693,7 +774,8 @@ def phase_bench(dev):
         "max_abs_err": sim_err, "index_agreement": min(agree), **t,
         "library_is": "bf16 torch.mm of the one product, not the same function",
         "launches_bench": launches["match_tile"]}
-    return launches, single_pair, {
+    rectangular = check_rectangular(dev, descs, pair00)
+    return launches, single_pair, rectangular, {
         **rates, "dense_rmse_final": res["dense_rmse"],
         "pcg_rmse_final": res["pcg_rmse"], "pcg_est_gflops": res["pcg_gflops"],
         "pcg_observations": res["pcg_obs"], "entry_cuda_cpu_cost_rel": entry_rel}
@@ -1701,7 +1783,8 @@ def main():
 
     rates = walled("ba_dense", phase_ba_dense, dev)
     rates.update(walled("ba_pcg", phase_ba_pcg, dev, rates["ba_dense_rmse_final"]))
-    launches_bench, single_pair, rates["bench"] = walled("bench", phase_bench, dev)
+    launches_bench, single_pair, rectangular, rates["bench"] = walled(
+        "bench", phase_bench, dev)
     par_tmp = tempfile.TemporaryDirectory()
     db16 = os.path.join(par_tmp.name, "features16.db")
     renders, launches, quality = walled("pipeline", phase_reconstruct, dev,
@@ -1764,7 +1847,7 @@ def main():
               match_stats_whole_ms=tm["whole"],
               library_is="bf16 torch.bmm of the product alone, not the same function",
               launches_parallel=rates["parallel"]["match_launches"],
-              single_pair=single_pair,
+              single_pair=single_pair, rectangular=rectangular,
               shape={"pairs": MATCH_IMAGES, "capacity": MATCH_CAP}),
     ]
     print(smi)

@@ -7,22 +7,26 @@
 // and writes, per row of A, the maximum, its column (the first one on ties)
 // and the runner-up, final; and per column of B the same statistics over
 // each block of 128 rows, which ops/match_kernel.py merges (the earlier
-// block wins ties).  The N x N similarities never reach device memory.
+// block wins ties).  A and B are two operand sides, each a bank of images
+// with its own capacity (N_a rows of A, N_b of B, each a multiple of 128),
+// as the reference takes n_a and n_b apart; the batched matcher passes one
+// bank as both.  The N_a x N_b similarities never reach device memory.
 //
-// What bounds it on the H100: the top-2 epilogue.  Each pair is 2 N^2 D
-// flops (17 GFLOP at N = 8192, D = 128), 17 us at the bf16 tensor-core
-// peak; folding each of its N^2 similarities into a row and a column top-2
+// What bounds it on the H100: the top-2 epilogue.  Each pair is 2 N_a N_b D
+// flops (17 GFLOP at N_a = N_b = 8192, D = 128), 17 us at the bf16 tensor-core
+// peak; folding each of its similarities into a row and a column top-2
 // costs about a dozen instructions on the CUDA cores, several times that,
 // and with one 200 KB CTA (8 consumer warps) per SM their dependent
 // compare-selects and shared-memory loads wait on latency (PERF.md).
 //
 // Design.  One CTA per (pair, block of 128 rows of A) walks every 128-column
-// tile of B in ascending order:
+// tile of B in ascending order (a grid of N_a / 128 x P, N_b / 128 tiles
+// each):
 //   - warpgroup 2 (the producer; one thread issues, and the warpgroup
 //     gives its registers to the consumers with setmaxnreg) loads the A
-//     block once with TMA and streams the B tiles (and their 128 mask
-//     bytes) through a ring of kStages stages, 128-byte swizzle, completion
-//     on mbarriers;
+//     block once with TMA through A's tensor map and streams the B tiles
+//     through B's (and their 128 mask bytes) through a ring of kStages
+//     stages, 128-byte swizzle, completion on mbarriers;
 //   - warpgroups 0 and 1 (64 rows each) run bf16 wgmma m64n128k16, eight
 //     k-steps over D = 128, into a register accumulator, and fold it; the
 //     two warpgroups run apart (ping-pong), so one's product runs on the
@@ -46,7 +50,7 @@
 //     shared tile, by selects and minima with no branch, so all threads
 //     reach the named barriers together.
 //
-// Launched on the caller's stream; allocates nothing.  The tensor map is
+// Launched on the caller's stream; allocates nothing.  The tensor maps are
 // encoded on the host per call through the driver entry point that the
 // runtime hands out, so the library needs no -lcuda.  Returns a CUDA error
 // code (0 on success) after the launch.
@@ -148,7 +152,7 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
       : "memory");
 }
 
-// One TMA box of the bank (64 bf16 of depth starting at `k`, 128 rows
+// One TMA box of a bank (64 bf16 of depth starting at `k`, 128 rows
 // starting at `row`) into shared memory, completing on `bar`.
 __device__ __forceinline__ void tma_box(uint32_t dst, const CUtensorMap* map,
                                         uint32_t bar, int k, int row) {
@@ -266,8 +270,9 @@ struct Consumer {
   }
 
   // Fold tile j into the row statistics and write the block's column
-  // partial for it.  `cm`: this thread's column bits; `col_ok`: the mask of
-  // the column this thread folds.  Each warpgroup
+  // partial for it (ct1/ci1/ct2: this block's row of the partials).  `cm`:
+  // this thread's column bits; `col_ok`: the mask of the column this
+  // thread folds.  Each warpgroup
   // works on its own rows of E under its own named barrier, so the two
   // run apart and one's product overlaps the other's fold; warpgroup 1
   // hands its column half to warpgroup 0 through X (two buffers,
@@ -277,14 +282,13 @@ struct Consumer {
                                            bool col_ok, int j, int row_base,
                                            float* __restrict__ ct1,
                                            int* __restrict__ ci1,
-                                           float* __restrict__ ct2,
-                                           size_t col_out) {
+                                           float* __restrict__ ct2) {
     const int col0 = j * kCols;
     // After this warpgroup's reads of the previous tile's E.
     wg_sync(1 + half);
     fold_rows(acc, cm, col0);
     wg_sync(1 + half);
-    fold_column(col_ok, j, col0, row_base, ct1, ci1, ct2, col_out);
+    fold_column(col_ok, j, col0, row_base, ct1, ci1, ct2);
   }
 
   // Rows, and this thread's values into E: masked columns read NEG in the
@@ -332,8 +336,7 @@ struct Consumer {
                                               int row_base,
                                               float* __restrict__ ct1,
                                               int* __restrict__ ci1,
-                                              float* __restrict__ ct2,
-                                              size_t col_out) {
+                                              float* __restrict__ ct2) {
     const int c = threadIdx.x % kCols;
     const float* e = E + 64 * half * kEStride + c;
     Top2 u[4];
@@ -364,20 +367,22 @@ struct Consumer {
       mbar_wait(x_full + 8 * buf, round);
       s = merge(s, Top2{x1[c], xi[c], x2[c]});
       mbar_arrive(x_free + 8 * buf);
-      ct1[col_out + col0 + c] = s.v1;
-      ci1[col_out + col0 + c] = s.i1;
-      ct2[col_out + col0 + c] = s.v2;
+      ct1[col0 + c] = s.v1;
+      ci1[col0 + c] = s.i1;
+      ct2[col0 + c] = s.v2;
     }
   }
 };
 
 __global__ void __launch_bounds__(kThreads, 1)
-match_tile_kernel(const __grid_constant__ CUtensorMap bank_map,
-                  const uint8_t* __restrict__ mask,
+match_tile_kernel(const __grid_constant__ CUtensorMap map_a,
+                  const __grid_constant__ CUtensorMap map_b,
+                  const uint8_t* __restrict__ mask_a,
+                  const uint8_t* __restrict__ mask_b,
                   const int* __restrict__ pairs, float* __restrict__ rt1,
                   int* __restrict__ ri1, float* __restrict__ rt2,
                   float* __restrict__ ct1, int* __restrict__ ci1,
-                  float* __restrict__ ct2, int N) {
+                  float* __restrict__ ct2, int N_a, int N_b) {
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   uint8_t* smem = smem_raw + (((raw + 1023) & ~1023u) - raw);
@@ -387,7 +392,7 @@ match_tile_kernel(const __grid_constant__ CUtensorMap bank_map,
   const uint32_t bar_full = bar_a + 8, bar_empty = bar_a + 8 + 8 * kStages;
 
   const int rb = blockIdx.x, p = blockIdx.y;
-  const int G = gridDim.x, tiles = N / kCols;
+  const int G = gridDim.x, tiles = N_b / kCols;
   const int ia = pairs[2 * p], ib = pairs[2 * p + 1];
   const int row_base = rb * kRows;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -407,20 +412,21 @@ match_tile_kernel(const __grid_constant__ CUtensorMap bank_map,
     // Producer: one thread issues every copy.
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;" ::: "memory");
     if (threadIdx.x == kConsumers) {
-      const int arow = ia * N + row_base;
+      const int arow = ia * N_a + row_base;
       mbar_expect_tx(bar_a, kTileBytes);
-      tma_box(sA, &bank_map, bar_a, 0, arow);
-      tma_box(sA + kHalfBytes, &bank_map, bar_a, 64, arow);
+      tma_box(sA, &map_a, bar_a, 0, arow);
+      tma_box(sA + kHalfBytes, &map_a, bar_a, 64, arow);
       for (int j = 0; j < tiles; ++j) {
         const int s = j % kStages;
         mbar_wait(bar_empty + 8 * s, ((j / kStages) & 1) ^ 1);
         const uint32_t full = bar_full + 8 * s;
         mbar_expect_tx(full, kTileBytes + kCols);
         const uint32_t dst = sB + s * kTileBytes;
-        tma_box(dst, &bank_map, full, 0, ib * N + j * kCols);
-        tma_box(dst + kHalfBytes, &bank_map, full, 64, ib * N + j * kCols);
-        bulk_copy(base + kOffM + s * kCols, mask + (size_t)ib * N + j * kCols,
-                  kCols, full);
+        const int brow = ib * N_b + j * kCols;
+        tma_box(dst, &map_b, full, 0, brow);
+        tma_box(dst + kHalfBytes, &map_b, full, 64, brow);
+        bulk_copy(base + kOffM + s * kCols, mask_b + (size_t)brow, kCols,
+                  full);
       }
     }
   } else {
@@ -430,8 +436,8 @@ match_tile_kernel(const __grid_constant__ CUtensorMap bank_map,
     cs.lane = lane;
     cs.half = threadIdx.x / 128;
     cs.r0 = 64 * cs.half + 16 * (warp % 4) + lane / 4;
-    const bool ok0 = mask[(size_t)ia * N + row_base + cs.r0] != 0;
-    const bool ok1 = mask[(size_t)ia * N + row_base + cs.r0 + 8] != 0;
+    const bool ok0 = mask_a[(size_t)ia * N_a + row_base + cs.r0] != 0;
+    const bool ok1 = mask_a[(size_t)ia * N_a + row_base + cs.r0 + 8] != 0;
     cs.lim0 = ok0 ? INFINITY : kNeg;
     cs.lim1 = ok1 ? INFINITY : kNeg;
     cs.s0 = Top2{-INFINITY, 0, -INFINITY};
@@ -442,7 +448,13 @@ match_tile_kernel(const __grid_constant__ CUtensorMap bank_map,
     cs.x_free = cs.x_full + 16;
     const uint8_t* sM = smem + kOffM;
     const uint32_t a_wg = sA + cs.half * (64 * 128);
-    const size_t col_out = ((size_t)p * G + rb) * N;
+    // This block's row of the column partials, (P, G, N_b) at p * G + rb.
+    // (Offsetting the pointers once, not each store, keeps the square
+    // pair's time of the one-bank kernel; tools/kernel_ab.py --mode match.)
+    const size_t col_out = ((size_t)p * G + rb) * N_b;
+    ct1 += col_out;
+    ci1 += col_out;
+    ct2 += col_out;
 
     float acc[64];
     mbar_wait(bar_a, 0);
@@ -456,7 +468,7 @@ match_tile_kernel(const __grid_constant__ CUtensorMap bank_map,
       const uint32_t cm = cs.mask_bits(m);
       const bool col_ok = m[threadIdx.x % kCols] != 0;
       mbar_arrive(bar_empty + 8 * s);
-      cs.epilogue(acc, cm, col_ok, j, row_base, ct1, ci1, ct2, col_out);
+      cs.epilogue(acc, cm, col_ok, j, row_base, ct1, ci1, ct2);
     }
 
     // Rows: merge the four lanes of each quad, which hold the same rows.
@@ -475,7 +487,7 @@ match_tile_kernel(const __grid_constant__ CUtensorMap bank_map,
     if (cs.lim0 < 0.f) cs.s0 = Top2{kNeg, 0, kNeg};
     if (cs.lim1 < 0.f) cs.s1 = Top2{kNeg, 0, kNeg};
     if (lane % 4 == 0) {
-      const size_t o = (size_t)p * N + row_base + cs.r0;
+      const size_t o = (size_t)p * N_a + row_base + cs.r0;
       rt1[o] = cs.s0.v1;
       ri1[o] = cs.s0.i1;
       rt2[o] = cs.s0.v2;
@@ -506,45 +518,61 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
+// The tensor map of a bank of `rows` rows of 128 bf16: boxes of 128 rows x
+// 64 bf16, 128-byte swizzle.
+bool encode_bank(EncodeTiled encode, CUtensorMap* map, const void* bank,
+                 long long rows) {
+  const cuuint64_t dims[2] = {(cuuint64_t)kDepth, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)kDepth * 2};
+  const cuuint32_t box[2] = {64, kCols};
+  const cuuint32_t elem[2] = {1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                const_cast<void*>(bank), dims, strides, box, elem,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 }  // namespace
 
 extern "C" {
 
-// bank (I, N, 128) bf16 and mask (I, N) uint8, both 16-byte aligned;
-// pairs (P, 2) int32 rows of the bank.  Writes the row statistics
-// rt1/ri1/rt2 (P, N) and the column partials ct1/ci1/ct2 (P, N / 128, N):
-// t1 f32, argmax int32, t2 f32.  N must be a multiple of 128 and D 128.
-int sfm_match_tile(const void* bank, const void* mask, const void* pairs,
-                   void* rt1, void* ri1, void* rt2, void* ct1, void* ci1,
-                   void* ct2, int I, int P, int N, int D, void* stream) {
-  if (N % kRows != 0 || D != kDepth || I <= 0 ||
-      reinterpret_cast<uintptr_t>(bank) % 16 != 0 ||
-      reinterpret_cast<uintptr_t>(mask) % 16 != 0)
+// Side A: bank_a (I_a, N_a, 128) bf16 and mask_a (I_a, N_a) uint8; side B
+// likewise with I_b, N_b (the same pointers for one bank); every pointer
+// 16-byte aligned.  pairs (P, 2) int32: (row of bank A, row of bank B).
+// Writes the row statistics rt1/ri1/rt2 (P, N_a) and the column partials
+// ct1/ci1/ct2 (P, N_a / 128, N_b): t1 f32, argmax int32, t2 f32.  N_a and
+// N_b must be multiples of 128 and D 128.
+int sfm_match_tile(const void* bank_a, const void* mask_a, int I_a, int N_a,
+                   const void* bank_b, const void* mask_b, int I_b, int N_b,
+                   const void* pairs, void* rt1, void* ri1, void* rt2,
+                   void* ct1, void* ci1, void* ct2, int P, int D,
+                   void* stream) {
+  if (N_a < 0 || N_b < 0 || N_a % kRows != 0 || N_b % kCols != 0 ||
+      D != kDepth || I_a <= 0 || I_b <= 0 ||
+      reinterpret_cast<uintptr_t>(bank_a) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(mask_a) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(bank_b) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(mask_b) % 16 != 0)
     return (int)cudaErrorInvalidValue;
-  if (P == 0 || N == 0) return 0;
+  if (P == 0 || N_a == 0 || N_b == 0) return 0;
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return (int)cudaErrorNotSupported;
-  CUtensorMap map;
-  const cuuint64_t dims[2] = {(cuuint64_t)kDepth, (cuuint64_t)I * N};
-  const cuuint64_t strides[1] = {(cuuint64_t)kDepth * 2};
-  const cuuint32_t box[2] = {64, kCols};
-  const cuuint32_t elem[2] = {1, 1};
-  if (encode(&map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
-             const_cast<void*>(bank), dims, strides, box, elem,
-             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+  CUtensorMap map_a, map_b;
+  if (!encode_bank(encode, &map_a, bank_a, (long long)I_a * N_a) ||
+      !encode_bank(encode, &map_b, bank_b, (long long)I_b * N_b))
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       match_tile_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       kSmemBytes);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid(N / kRows, P);
+  dim3 grid(N_a / kRows, P);
   match_tile_kernel<<<grid, kThreads, kSmemBytes, (cudaStream_t)stream>>>(
-      map, static_cast<const uint8_t*>(mask), static_cast<const int*>(pairs),
+      map_a, map_b, static_cast<const uint8_t*>(mask_a),
+      static_cast<const uint8_t*>(mask_b), static_cast<const int*>(pairs),
       static_cast<float*>(rt1), static_cast<int*>(ri1),
       static_cast<float*>(rt2), static_cast<float*>(ct1),
-      static_cast<int*>(ci1), static_cast<float*>(ct2), N);
+      static_cast<int*>(ci1), static_cast<float*>(ct2), N_a, N_b);
   return (int)cudaGetLastError();
 }
 

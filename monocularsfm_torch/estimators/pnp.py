@@ -313,7 +313,7 @@ def _reproj_err_px(K, R, t, X, uv):
 def estimate_pnp_ransac(u: torch.Tensor, K: torch.Tensor, X: torch.Tensor,
                         uv: torch.Tensor, mask: torch.Tensor,
                         threshold_px: float = 4.0, refine_iters: int = 10,
-                        method: str = "epnp"):
+                        method: str = "p6p"):
     """RANSAC PnP (minimal solver per `method`) + Gauss-Newton polish.
 
     u: (M, N) uniform draws (M samples), K: (3, 3), X: (N, 3) world points,

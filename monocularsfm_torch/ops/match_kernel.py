@@ -3,12 +3,14 @@
 The counterpart of monocularsfm_tpu/ops/pallas_matching.py.  For each image
 pair of a batch, `match_stats` returns six (P, N) statistics of the masked
 bf16 similarity matrix A.B^T: per row of A the best similarity, its column
-and the runner-up, and the same per column of B.  On a CUDA tensor it
-launches csrc/match_tile.cu, which writes the row statistics final and the
-column statistics per block of 128 rows; `_merge_partials` folds those
-blocks together here in plain torch, as the reference does after its
-pallas_call.  On a CPU tensor it runs `match_stats_plain`, the column-tiled
-scan of the reference's XLA matcher (ops/matching.py there).
+and the runner-up, and the same per column of B.  `match_stats_pair` does
+the same for one pair of any two capacities N_A and N_B, as the reference's
+`_match_stats_pallas` takes them.  On a CUDA tensor both launch
+csrc/match_tile.cu, which writes the row statistics final and the column
+statistics per block of 128 rows; `_merge_partials` folds those blocks
+together here in plain torch, as the reference does after its pallas_call.
+On a CPU tensor they run `match_stats_plain`, the column-tiled scan of the
+reference's XLA matcher (ops/matching.py there).
 
 Tie rules, shared by both: the first index wins within a tile, the earlier
 tile wins across tiles, masked entries are NEG, so the statistics equal a
@@ -22,7 +24,7 @@ import torch
 from monocularsfm_torch.ops import _build
 
 NEG = -1e30
-TILE = 128   # the kernel's tile side; N must be a multiple of it
+TILE = 128   # the kernel's tile side; each capacity a multiple of it
 DEPTH = 128  # the only descriptor length the kernel takes
 
 LAUNCHES = {"match_tile": 0}
@@ -82,16 +84,19 @@ def match_stats_plain_batch(bank, mask, pair_ids, col_tile: int = 1024):
     return tuple(torch.stack(s) for s in zip(*out))
 
 
-def column_partials_plain(bank, mask, pair_ids):
+def column_partials_plain(bank, mask, pair_ids, bank_b=None, mask_b=None):
     """The kernel's column partials, computed plainly: for every pair and
     every block of TILE rows of A, each column's max, its first-index row
-    and runner-up over that block.  Three (P, N / TILE, N) tensors."""
+    and runner-up over that block.  The B side is `bank_b`/`mask_b` where
+    given, else `bank`/`mask`.  Three (P, N_a / TILE, N_b) tensors."""
+    if bank_b is None:
+        bank_b, mask_b = bank, mask
     out = []
     for ia, ib in pair_ids.tolist():
         a = bank[ia].to(torch.bfloat16).float()
-        b = bank[ib].to(torch.bfloat16).float()
+        b = bank_b[ib].to(torch.bfloat16).float()
         sims = a @ b.T
-        sims = torch.where(mask[ia][:, None] & mask[ib][None, :], sims, NEG)
+        sims = torch.where(mask[ia][:, None] & mask_b[ib][None, :], sims, NEG)
         blocks = [_top2(sims[r:r + TILE], 0) for r in range(0, len(a), TILE)]
         t1, i1, t2 = (torch.stack(x) for x in zip(*blocks))
         i1 = i1 + torch.arange(0, len(a), TILE, dtype=torch.int32,
@@ -118,48 +123,70 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-def match_tile_partials(bank, mask, pair_ids):
-    """Launch kernel 3.  bank (I, N, 128) bf16, mask (I, N) bool, pair_ids
-    (P, 2) int32, all on one CUDA device.  Returns the row statistics, each
-    (P, N), and the column partials, each (P, N / TILE, N): (t1 f32,
-    argmax int32, t2 f32) both."""
-    dev = bank.device
+def _check_side(name, bank, mask, dev):
+    """(I, N) of one operand side, after checking what the kernel takes."""
     if bank.dtype != torch.bfloat16 or bank.dim() != 3:
-        raise ValueError(f"bank must be (I, N, D) bfloat16, got "
+        raise ValueError(f"{name} must be (I, N, D) bfloat16, got "
                          f"{tuple(bank.shape)} {bank.dtype}")
     I, N, D = bank.shape
     if N % TILE or D != DEPTH:
-        raise ValueError(f"bank capacity {N} must be a multiple of {TILE} "
+        raise ValueError(f"{name} capacity {N} must be a multiple of {TILE} "
                          f"and depth {D} must be {DEPTH}")
     if mask.dtype != torch.bool or tuple(mask.shape) != (I, N):
-        raise ValueError(f"mask must be ({I}, {N}) bool")
+        raise ValueError(f"{name}'s mask must be ({I}, {N}) bool")
+    if bank.device != dev or mask.device != dev:
+        raise ValueError("banks, masks and pair_ids must share one device")
+    return I, N
+
+
+def match_tile_partials(bank, mask, pair_ids, bank_b=None, mask_b=None):
+    """Launch kernel 3.  bank (I_a, N_a, 128) bf16 and mask (I_a, N_a) bool
+    are side A; `bank_b` (I_b, N_b, 128) and `mask_b` side B, or side A's
+    where not given.  pair_ids (P, 2) int32: (image of A, image of B).  All
+    on one CUDA device.  Returns the row statistics, each (P, N_a), and the
+    column partials, each (P, N_a / TILE, N_b): (t1 f32, argmax int32, t2
+    f32) both."""
+    if (bank_b is None) != (mask_b is None):
+        raise ValueError("bank_b and mask_b go together")
+    one_bank = bank_b is None
+    if one_bank:
+        bank_b, mask_b = bank, mask
+    dev = pair_ids.device
+    I_a, N_a = _check_side("bank", bank, mask, dev)
+    I_b, N_b = _check_side("bank_b", bank_b, mask_b, dev)
     if (pair_ids.dtype != torch.int32 or pair_ids.dim() != 2
             or pair_ids.shape[1] != 2):
         raise ValueError("pair_ids must be (P, 2) int32")
-    if mask.device != dev or pair_ids.device != dev:
-        raise ValueError("bank, mask and pair_ids must share one device")
-    if pair_ids.numel() and (int(pair_ids.min()) < 0 or int(pair_ids.max()) >= I):
-        raise ValueError(f"pair_ids outside the bank's {I} images")
+    if pair_ids.numel():
+        hi_a, hi_b = pair_ids.amax(0).tolist()
+        if int(pair_ids.min()) < 0 or hi_a >= I_a or hi_b >= I_b:
+            raise ValueError(f"pair_ids outside the banks' {I_a} and {I_b} images")
     bank, mask, pair_ids = _aligned(bank), _aligned(mask), pair_ids.contiguous()
-    P, G = pair_ids.shape[0], N // TILE
+    bank_b, mask_b = ((bank, mask) if one_bank else
+                      (_aligned(bank_b), _aligned(mask_b)))
+    P, G = pair_ids.shape[0], N_a // TILE
     f32 = dict(device=dev, dtype=torch.float32)
     i32 = dict(device=dev, dtype=torch.int32)
-    rows = (torch.empty((P, N), **f32), torch.empty((P, N), **i32),
-            torch.empty((P, N), **f32))
-    cols = (torch.empty((P, G, N), **f32), torch.empty((P, G, N), **i32),
-            torch.empty((P, G, N), **f32))
-    launch(bank, mask, pair_ids, rows, cols)
+    rows = (torch.empty((P, N_a), **f32), torch.empty((P, N_a), **i32),
+            torch.empty((P, N_a), **f32))
+    cols = (torch.empty((P, G, N_b), **f32), torch.empty((P, G, N_b), **i32),
+            torch.empty((P, G, N_b), **f32))
+    launch(bank, mask, pair_ids, rows, cols, bank_b, mask_b)
     return rows, cols
 
 
-def launch(bank, mask, pair_ids, rows, cols) -> None:
+def launch(bank, mask, pair_ids, rows, cols, bank_b=None, mask_b=None) -> None:
     """The bare launch of kernel 3 into given outputs, for inputs that
-    `match_tile_partials` has checked (bank and mask 16-byte aligned)."""
-    I, N, D = bank.shape
+    `match_tile_partials` has checked (banks and masks 16-byte aligned).
+    Side B is `bank_b`/`mask_b`, or side A's where not given."""
+    if bank_b is None:
+        bank_b, mask_b = bank, mask
+    (I_a, N_a, D), (I_b, N_b, _) = bank.shape, bank_b.shape
     _build.check(_build.lib().sfm_match_tile(
-        bank.data_ptr(), mask.data_ptr(), pair_ids.data_ptr(),
+        bank.data_ptr(), mask.data_ptr(), I_a, N_a,
+        bank_b.data_ptr(), mask_b.data_ptr(), I_b, N_b, pair_ids.data_ptr(),
         *(t.data_ptr() for t in rows), *(t.data_ptr() for t in cols),
-        I, pair_ids.shape[0], N, D, _build.stream_ptr(bank.device)),
+        pair_ids.shape[0], D, _build.stream_ptr(bank.device)),
         "sfm_match_tile")
     LAUNCHES["match_tile"] += 1
 
@@ -175,3 +202,23 @@ def match_stats(bank, mask, pair_ids, col_tile: int = 1024):
         raise ValueError(f"match_stats: unsupported device {bank.device}")
     rows, cols = match_tile_partials(bank, mask, pair_ids)
     return rows + _merge_partials(*cols)
+
+
+def match_stats_pair(desc_a, desc_b, mask_a, mask_b, col_tile: int = 1024):
+    """One pair's six statistics, (N_A,) x 3 then (N_B,) x 3, for any two
+    capacities: desc_a (N_A, 128), desc_b (N_B, 128), masks bool.
+
+    CUDA tensors go through one launch of kernel 3 with each side its own
+    one-image bank (each capacity a multiple of TILE, else ValueError);
+    CPU tensors through `match_stats_plain`."""
+    if desc_a.device.type == "cpu":
+        return match_stats_plain(desc_a, desc_b, mask_a, mask_b, col_tile)
+    if desc_a.device.type != "cuda":
+        raise ValueError(f"match_stats_pair: unsupported device {desc_a.device}")
+    # Made on the device: a copy from the host would wait for the stream.
+    pair_ids = torch.zeros((1, 2), dtype=torch.int32, device=desc_a.device)
+    # bf16 on every backend (rule b), as the reference casts before its dot.
+    rows, cols = match_tile_partials(
+        desc_a.to(torch.bfloat16)[None], mask_a[None], pair_ids,
+        desc_b.to(torch.bfloat16)[None], mask_b[None])
+    return tuple(s[0] for s in rows + _merge_partials(*cols))

@@ -19,9 +19,14 @@ import torch
 from monocularsfm_torch.ops.match_kernel import (
     NEG,
     match_stats,
+    match_stats_pair,
     match_stats_plain,
     match_stats_plain_batch,
 )
+
+# match_pairs_batch's `kernel` values: the reference's strings, and the
+# port's own booleans.  "xla" and False take the plain statistics.
+KERNEL_CHOICES = ("auto", "pallas", "xla", True, False)
 
 
 def _dist(sim):
@@ -63,37 +68,32 @@ def match_descriptors_pair_auto(desc_a, desc_b, mask_a, mask_b,
                                 ratio: float = 0.8, max_distance: float = 0.7,
                                 cross_check: bool = True,
                                 col_tile: int = 1024) -> torch.Tensor:
-    """The single-pair matcher by device: on CUDA tensors kernel 3 over a
-    two-image bf16 bank (both sides (N, 128), N a multiple of 128), on CPU
-    tensors `match_descriptors_pair`.  The same idx_b: int32[N_A] either
-    way."""
-    if desc_a.device.type == "cpu":
-        return match_descriptors_pair(desc_a, desc_b, mask_a, mask_b, ratio,
-                                      max_distance, cross_check, col_tile)
-    if desc_a.shape != desc_b.shape or mask_a.shape != mask_b.shape:
-        raise ValueError(f"the kernel matches equal capacities, got "
-                         f"{tuple(desc_a.shape)} and {tuple(desc_b.shape)}")
-    # bf16 on every backend (rule b), as the reference casts before its dot.
-    bank = torch.stack([desc_a.to(torch.bfloat16), desc_b.to(torch.bfloat16)])
-    # Made on the device: a copy from the host would wait for the stream.
-    pair_ids = torch.arange(2, dtype=torch.int32, device=bank.device)[None]
-    stats = match_stats(bank, torch.stack([mask_a, mask_b]), pair_ids,
-                        col_tile)
-    return _decide(mask_a[None], stats, ratio, max_distance, cross_check)[0]
+    """The single-pair matcher by device: on CUDA tensors one launch of
+    kernel 3 (desc_a (N_A, 128), desc_b (N_B, 128), each capacity a
+    multiple of 128, any two), on CPU tensors the plain statistics of
+    `match_descriptors_pair`.  The same idx_b: int32[N_A] either way."""
+    stats = match_stats_pair(desc_a, desc_b, mask_a, mask_b, col_tile)
+    return _decide(mask_a, stats, ratio, max_distance, cross_check)
 
 
 def match_pairs_batch(desc_bank, mask_bank, pair_ids, ratio: float = 0.8,
                       max_distance: float = 0.7, cross_check: bool = True,
-                      col_tile: int = 1024, kernel: bool = True) -> torch.Tensor:
+                      col_tile: int = 1024,
+                      kernel: "str | bool" = "auto") -> torch.Tensor:
     """Returns idx_b: int32 (P, N) match map per pair.
 
     desc_bank (I, N, D) (bfloat16 on CUDA), mask_bank (I, N) bool, pair_ids
-    (P, 2) int32 rows of the bank.  `kernel=True` (the pipeline) takes
-    `match_stats`, which is kernel 3 on CUDA tensors; `kernel=False` forces
-    the plain statistics on any device, for comparing the two."""
+    (P, 2) int32 rows of the bank.  `kernel`, as the reference reads it:
+    "auto" (the default) and "pallas" take `match_stats`, which is kernel 3
+    on CUDA tensors and the plain statistics on CPU tensors (where the
+    reference interprets its kernel); "xla" forces the plain statistics on
+    any device, for comparing the two.  True and False mean "auto" and
+    "xla"."""
+    if kernel not in KERNEL_CHOICES:
+        raise ValueError(f"kernel must be one of {KERNEL_CHOICES}, got {kernel!r}")
     pair_ids = torch.as_tensor(pair_ids, dtype=torch.int32,
                                device=desc_bank.device)
-    if kernel:
+    if kernel in ("auto", "pallas", True):
         stats = match_stats(desc_bank, mask_bank, pair_ids, col_tile)
     else:
         stats = match_stats_plain_batch(desc_bank, mask_bank, pair_ids,

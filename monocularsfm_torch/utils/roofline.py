@@ -41,13 +41,18 @@ def blur_multi_work(B: int, H: int, W: int, C: int, T: int) -> tuple[float, floa
     return 4.0 * px * (1 + C) + 4.0 * C * T, 2.0 * px * C * 2 * T
 
 
-def match_work(valid, pairs, N: int, D: int = 128) -> tuple[float, float]:
+def match_work(valid, pairs, N: int, D: int = 128,
+               N_b: int | None = None) -> tuple[float, float]:
     """Bytes and bf16 flops of the six statistics of a batch of pairs.
 
     valid[i]: the number of valid descriptors of image i (its mask's
-    count); pairs: (ia, ib) rows of the bank.  Reads each used image's
-    valid descriptors once (bf16) and its mask; writes six (P, N) words."""
-    used = {i for p in pairs for i in p}
-    nbytes = sum(2.0 * D * valid[i] + N for i in used) + 6 * 4.0 * len(pairs) * N
+    count); pairs: (ia, ib) images of side A (capacity N) and side B
+    (capacity N_b, N where not given: one bank for both sides).  Reads each
+    used image's valid descriptors once (bf16) and its mask; writes three
+    (P, N) row words and three (P, N_b) column words."""
+    N_b = N if N_b is None else N_b
+    cap = {a: N for a, _ in pairs} | {b: N_b for _, b in pairs}
+    nbytes = (sum(2.0 * D * valid[i] + c for i, c in cap.items())
+              + 3 * 4.0 * len(pairs) * (N + N_b))
     ops = sum(2.0 * D * valid[a] * valid[b] for a, b in pairs)
     return nbytes, ops

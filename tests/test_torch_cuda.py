@@ -243,8 +243,9 @@ def test_match_kernel_rejects_bad_inputs(dev):
 @pytest.mark.parametrize("cap", [128, 1024])
 def test_pair_auto_launches_the_kernel_and_equals_plain(dev, cap):
     """The single-pair matcher on f32 CUDA tensors: one launch of kernel 3
-    and the plain matcher's idx_b on the same card; unequal capacities
-    raise."""
+    and the plain matcher's idx_b on the same card, at equal capacities and
+    at (cap, cap / 2) and (cap / 2, cap); a capacity that is not a multiple
+    of 128 raises."""
     from monocularsfm_torch.ops.matching import (
         match_descriptors_pair,
         match_descriptors_pair_auto,
@@ -264,8 +265,67 @@ def test_pair_auto_launches_the_kernel_and_equals_plain(dev, cap):
     ref = match_descriptors_pair(a, b, ma, mb, col_tile=min(cap, 1024))
     assert (ours == ref).float().mean().item() >= 0.999
     assert (ours >= 0).float().mean().item() > 0.5
+    h = cap // 2
+    if h % match_kernel.TILE:
+        with pytest.raises(ValueError):
+            match_descriptors_pair_auto(a, b[:h], ma, mb[:h])
+        return
+    for n_a, n_b in ((cap, h), (h, cap)):
+        match_kernel.reset_launches()
+        ours = match_descriptors_pair_auto(a[:n_a], b[:n_b], ma[:n_a], mb[:n_b])
+        assert match_kernel.LAUNCHES["match_tile"] == 1
+        assert ours.dtype == torch.int32 and ours.shape == (n_a,)
+        ref = match_descriptors_pair(a[:n_a], b[:n_b], ma[:n_a], mb[:n_b],
+                                     col_tile=min(n_b, 1024))
+        assert (ours == ref).float().mean().item() >= 0.999
+        assert (ours >= 0).float().mean().item() > 0.3
+
+
+@pytest.mark.parametrize("n_a,n_b", [(8192, 512), (512, 8192)])
+def test_match_kernel_rectangular_pair_equals_plain(dev, n_a, n_b):
+    """Kernel 3 on one pair of unequal capacities (side A 90% valid): its six
+    statistics against the plain ones on the card, one launch."""
+    rng = np.random.default_rng(n_a + 3 * n_b)
+    descs = _noisy_bank(rng, 2, max(n_a, n_b))
+    a = torch.from_numpy(descs[0, :n_a]).to(dev)
+    b = torch.from_numpy(descs[1, :n_b]).to(dev)
+    ma = torch.from_numpy(rng.random(n_a) < 0.9).to(dev)
+    mb = torch.ones(n_b, dtype=torch.bool, device=dev)
+    match_kernel.reset_launches()
+    sk = match_kernel.match_stats_pair(a, b, ma, mb)
+    torch.cuda.synchronize()
+    assert match_kernel.LAUNCHES["match_tile"] == 1
+    sp = match_kernel.match_stats_plain(a, b, ma, mb)
+    assert [x.shape for x in sk] == [(n_a,)] * 3 + [(n_b,)] * 3
+    _assert_stats_agree(sk, sp)
+
+
+def test_square_bank_path_equals_the_two_sided_call(dev):
+    """One bank as both sides and the same images as two one-image banks
+    give the same statistics bit for bit."""
+    rng = np.random.default_rng(17)
+    bank = torch.from_numpy(_noisy_bank(rng, 2, 1024)).to(dev, torch.bfloat16)
+    mask = torch.from_numpy(rng.random((2, 1024)) < 0.9).to(dev)
+    pair = torch.tensor([[0, 1]], dtype=torch.int32, device=dev)
+    one = match_kernel.match_stats(bank, mask, pair)
+    two = match_kernel.match_stats_pair(bank[0], bank[1], mask[0], mask[1])
+    for x, y in zip(one, two):
+        assert torch.equal(x[0], y)
+
+
+def test_match_kernel_rejects_bad_b_side(dev):
+    bank = torch.zeros((2, 256, 128), dtype=torch.bfloat16, device=dev)
+    mask = torch.ones((2, 256), dtype=torch.bool, device=dev)
+    pairs = torch.tensor([[0, 1]], dtype=torch.int32, device=dev)
     with pytest.raises(ValueError):
-        match_descriptors_pair_auto(a, b[:cap // 2], ma, mb[:cap // 2])
+        match_kernel.match_tile_partials(bank, mask, pairs, bank[:, :200],
+                                         mask[:, :200])
+    with pytest.raises(ValueError):
+        match_kernel.match_tile_partials(bank, mask, pairs, bank)
+    with pytest.raises(ValueError):
+        match_kernel.match_tile_partials(bank, mask, pairs, bank[:1], mask[:1])
+    with pytest.raises(ValueError):
+        match_kernel.match_tile_partials(bank, mask, pairs, bank.float(), mask)
 
 
 def _ring(split):

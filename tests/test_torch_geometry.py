@@ -264,7 +264,7 @@ def test_epnp_ransac_matches_reference():
     ref = JP.estimate_pnp_ransac(key, K, Xp, Up, m, threshold_px=4.0,
                                  num_hyps=M, method="epnp")
     out = TP.estimate_pnp_ransac(_draws(key, M, cap), _t(K), _t(Xp), _t(Up),
-                                 _t(m), threshold_px=4.0)
+                                 _t(m), threshold_px=4.0, method="epnp")
     np.testing.assert_array_equal(out["inliers"].numpy(), _j(ref["inliers"]))
     np.testing.assert_allclose(out["R"].numpy(), _j(ref["R"]), atol=POSE_TOL)
     np.testing.assert_allclose(out["t"].numpy(), _j(ref["t"]), atol=POSE_TOL)

@@ -253,6 +253,30 @@ def test_pnp_ransac_matches_reference(method):
                - float(ref["mean_inlier_error_px"])) <= 1e-3
 
 
+def test_default_method_is_the_reference_default():
+    """Without `method`, both packages run their default solver (P6P in the
+    JAX package) on the same draws: the same inliers and pose, and the
+    port's result is its P6P result bit for bit.  At 2 px of noise EPnP's
+    winner keeps another inlier set than P6P's."""
+    K, Xp, Up, m, scene = _scene(noise_px=2.0)
+    M, cap = 256, len(m)
+    key = jax.random.PRNGKey(7)
+    u = _t(jax.random.uniform(key, (M, cap)))
+    ref = JP.estimate_pnp_ransac(key, K, Xp, Up, m, threshold_px=4.0, num_hyps=M)
+    out = TP.estimate_pnp_ransac(u, _t(K), _t(Xp), _t(Up), _t(m), threshold_px=4.0)
+    p6p = TP.estimate_pnp_ransac(u, _t(K), _t(Xp), _t(Up), _t(m), threshold_px=4.0,
+                                 method="p6p")
+    np.testing.assert_allclose(out["R"].numpy(), scene.R[2], atol=0.01)
+    assert int(out["num_inliers"]) == int(ref["num_inliers"])
+    np.testing.assert_array_equal(out["inliers"].numpy(), np.asarray(ref["inliers"]))
+    np.testing.assert_allclose(out["R"].numpy(), np.asarray(ref["R"]), atol=POSE_TOL)
+    np.testing.assert_allclose(out["t"].numpy(), np.asarray(ref["t"]), atol=POSE_TOL)
+    assert abs(float(out["mean_inlier_error_px"])
+               - float(ref["mean_inlier_error_px"])) <= 1e-3
+    for k in ("R", "t", "inliers"):
+        assert torch.equal(out[k], p6p[k]), k
+
+
 def test_unknown_method_raises():
     K, Xp, Up, m, _ = _scene()
     with pytest.raises(ValueError, match="unknown pnp method"):

@@ -25,6 +25,24 @@ def test_matcher_bound_counts_valid_descriptors_only():
     assert more == nbytes
 
 
+@pytest.mark.parametrize("n_a,n_b", [(8192, 512), (512, 8192), (1024, 1024)])
+def test_matcher_bound_of_a_rectangular_pair(n_a, n_b):
+    """Three (P, N_a) row words and three (P, N_b) column words, each side's
+    mask once; N_b=None is the one-bank count."""
+    pairs = [(0, 1)]
+    nbytes, flops = roofline.match_work([0, 0], pairs, n_a, N_b=n_b)
+    assert nbytes == n_a + n_b + 4 * (3 * n_a + 3 * n_b)
+    assert flops == 0
+    nbytes, flops = roofline.match_work([n_a, n_b], pairs, n_a, N_b=n_b)
+    assert nbytes == 2 * 128 * (n_a + n_b) + n_a + n_b + 12 * (n_a + n_b)
+    assert flops == 2 * 128 * n_a * n_b
+    ring = [(i, (i + 1) % 16) for i in range(16)]
+    assert (roofline.match_work([n_a] * 16, ring, n_a)
+            == roofline.match_work([n_a] * 16, ring, n_a, N_b=None))
+    assert roofline.match_work([n_a] * 16, ring, n_a)[0] == (
+        16 * (2 * 128 * n_a + n_a) + 6 * 4 * 16 * n_a)
+
+
 def test_blur_h_moves_twice_the_stack():
     nbytes, flops = roofline.blur_h_work(4, 1920, 2560, 5, 31)
     px = 4 * 5 * 1920 * 2560

@@ -36,7 +36,7 @@ import chip_smoke  # noqa: E402  (time_ms, match_bank)
 from monocularsfm_torch.ops import _build  # noqa: E402
 
 CALL_ROWS = "    fold_rows(acc, cm, col0);\n"
-CALL_COLS = "    fold_column(col_ok, j, col0, row_base, ct1, ci1, ct2, col_out);\n"
+CALL_COLS = "    fold_column(col_ok, j, col0, row_base, ct1, ci1, ct2);\n"
 WGMMA = "    wgmma_m64n128k16(acc, sw128_desc(a + off), sw128_desc(b + off), s > 0);\n  }"
 REDUCE_MAX = ("    float m = acc[0];\n#pragma unroll\n"
               "    for (int i = 1; i < 64; ++i) m = fmaxf(m, acc[i]);\n"
@@ -90,11 +90,13 @@ def main():
                  if "match_tile_kernel" not in line or "C75" in line]
         notes = [n for n in notes if "C75" in n or "registers" in n]
         fn = ctypes.CDLL(str(so)).sfm_match_tile
-        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        fn.argtypes, fn.restype = _build._SIGNATURES["sfm_match_tile"]
 
         def run():
-            code = fn(bank.data_ptr(), mask.data_ptr(), pairs.data_ptr(),
-                      *(t.data_ptr() for t in outs), I, P, N, D,
+            # One bank as both sides, as the batched matcher launches it.
+            code = fn(bank.data_ptr(), mask.data_ptr(), I, N, bank.data_ptr(),
+                      mask.data_ptr(), I, N, pairs.data_ptr(),
+                      *(t.data_ptr() for t in outs), P, D,
                       torch.cuda.current_stream().cuda_stream)
             if code:
                 raise RuntimeError(f"{name}: CUDA error {code}")
