@@ -36,7 +36,10 @@ Between the second pipeline and the PnP solvers, `phase_gather`: SIFT's
 gather sampler (`sample_mode: gather`) on the slice's 1280x960 batch and
 a 3200x2400 image (against the same sampler on the CPU and against the
 patch sampler), the pipeline on 16 of the views in gather mode, and LM
-in segments (`dispatch_iters`) and on shuffled split rows.  Last
+in segments (`dispatch_iters`) and on shuffled split rows; then
+`phase_repeat`: one input, two runs, the same bits, for dense and PCG BA,
+the vocabulary trainer and a 16-view pipeline (it prints a {"repeat": ...}
+line on standard output).  Last
 the multi-device layer (`phase_parallel`) on the one card: landmark-sharded
 BA as a world of one NCCL rank in this process and as two gloo ranks
 sharing the card (the dense and the scaling table's PCG ring, against the
@@ -147,10 +150,15 @@ RECT_MATCHED = 0.3
 GATHER_IMAGES, GATHER_VIEWS, GATHER_MIN_REG = 4, 16, 15
 GATHER_SHARED, GATHER_DESC_TOL = 0.9, 5e-3
 # Resumable LM: segments of SEG_DENSE_STEP / SEG_PCG_STEP iterations against
-# one segment of the same fixed work, rmse_final within SEG_RTOL relative
-# (index_add_ sums in any order on the card); the PCG ring's split rows
-# shuffled against the sorted rows, within the same.
+# one segment of the same fixed work, rmse_final within SEG_RTOL relative;
+# the PCG ring's split rows shuffled against the sorted rows (which sums
+# each camera's and point's rows in another order), within the same.
 SEG_DENSE_ITERS, SEG_DENSE_STEP, SEG_PCG_STEP, SEG_RTOL = 12, 4, 3, 1e-4
+# One input, two runs (phase_repeat): dense and PCG BA on the rings above,
+# train_visual_vocab on the 16-view feature database, and the pipeline on
+# the first REPEAT_VIEWS of the main pipeline's renders (global BA dense to
+# REPEAT_DENSE_MAX views, PCG beyond), each run twice and held bit-equal.
+REPEAT_VIEWS, REPEAT_DENSE_MAX, REPEAT_WORDS = 16, 8, 4096
 PAR_PROBLEMS = (   # (name, (cams, points, track, seed), solver arguments)
     ("dense", (BA_CAMS, BA_POINTS, BA_TRACK, 2),
      dict(max_iterations=BA_ITERS, **FIXED_WORK)),
@@ -551,7 +559,6 @@ def phase_ba_pcg(dev, dense_rmse):
         f"{rmse:.5f} px")
     if rmse > RMSE_MAX:
         fail(f"PCG BA: rmse_final {rmse} > {RMSE_MAX}")
-    del gpu
     split, _ = ring_problem(BA_CAMS, BA_POINTS, BA_TRACK, seed=2, row_width=4)
     same, dt2 = timed_ba(split.to(dev), dev, max_iterations=BA_ITERS, **kw)
     diff = abs(float(same["rmse_final"]) - dense_rmse)
@@ -562,7 +569,7 @@ def phase_ba_pcg(dev, dense_rmse):
         fail(f"PCG vs dense rmse_final differ by {diff} px > {PCG_DENSE_TOL}")
     return {"ba_pcg_lm_iters_per_s": it / dt, "ba_pcg_lm_iters": it,
             "ba_pcg_cg_steps": cg, "ba_pcg_rmse_final": rmse,
-            "ba_pcg_vs_dense_rmse_diff": diff}
+            "ba_pcg_vs_dense_rmse_diff": diff}, gpu
 
 
 def _pair_unchecked(a, b, ma, mb, pair00):
@@ -1205,6 +1212,222 @@ def phase_pipeline_alt(dev, renders):
         "stage_s": stages, "mapbuilder_s": timers,
     }
 
+
+# One input, two runs (phase_repeat, tools/repeat_check.py): each helper
+# runs one of the port's computations twice from the same inputs in this
+# process and compares the two results bit for bit.  It reports whether
+# every output is equal, the largest absolute difference, and the counts a
+# user would see move (LM iterations, CG steps, registered images and
+# points).
+
+def bits_equal(a, b) -> bool:
+    """True when two arrays have the same shape, dtype and bytes (so NaNs
+    with the same payload compare equal, and -0.0 differs from 0.0)."""
+    a, b = (torch.as_tensor(v).cpu().contiguous().reshape(-1) for v in (a, b))
+    return (a.shape == b.shape and a.dtype == b.dtype
+            and torch.equal(a.view(torch.uint8), b.view(torch.uint8)))
+
+
+def max_abs_diff(a, b) -> float:
+    """The largest |a - b| over the entries finite in both; inf when the
+    shapes differ, 0.0 for empty arrays."""
+    a, b = (torch.as_tensor(v).cpu().double().reshape(-1) for v in (a, b))
+    if a.shape != b.shape:
+        return float("inf")
+    both = torch.isfinite(a) & torch.isfinite(b)
+    return float((a - b)[both].abs().max()) if bool(both.any()) else 0.0
+
+
+def _twice(fn, device):
+    """fn(0) and fn(1), each timed by the host clock around a synchronised
+    run: ([result 0, result 1], [seconds 0, seconds 1])."""
+    cuda = torch.device(device).type == "cuda"
+    runs, walls = [], []
+    for k in range(2):
+        if cuda:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runs.append(fn(k))
+        if cuda:
+            torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    return runs, walls
+
+
+def ba_twice(prob, device, **kw) -> dict:
+    """bundle_adjust twice on `prob` (already on `device`)."""
+    from monocularsfm_torch.optim import bundle_adjust
+
+    runs, walls = _twice(lambda _: bundle_adjust(prob, device=device, **kw), device)
+    a, b = runs
+    keys = ("R", "t", "X", "K", "cost_initial", "cost_final", "radius")
+    equal = {k: bits_equal(a[k], b[k]) for k in keys}
+    equal["iterations"] = a["iterations"] == b["iterations"]
+    equal["cg_steps"] = a["cg_steps"] == b["cg_steps"]
+    return {
+        "equal": all(equal.values()), "equal_by_output": equal,
+        "max_abs_diff": {k: max_abs_diff(a[k], b[k]) for k in ("R", "t", "X")},
+        "cost_final": [float(r["cost_final"]) for r in runs],
+        "rmse_final": [float(r["rmse_final"]) for r in runs],
+        "lm_iterations": [r["iterations"] for r in runs],
+        "cg_steps": [r["cg_steps"] for r in runs],
+        "wall_s": walls,
+    }
+
+
+def descriptor_bank(database_path: str) -> np.ndarray:
+    """Every image's descriptors in a database, stacked as unit f32 rows."""
+    from monocularsfm_torch.database import Database
+
+    db = Database(database_path)
+    try:
+        parts = [db.read_descriptors(i) for i in sorted(db.read_all_images())]
+    finally:
+        db.close()
+    bank = np.concatenate([p for p in parts if p is not None]).astype(np.float32)
+    return bank / np.maximum(np.linalg.norm(bank, axis=1, keepdims=True), 1e-12)
+
+
+def vocab_twice(bank: np.ndarray, device, num_words: int = 4096) -> dict:
+    """train_visual_vocab twice on a host bank of descriptors; where the
+    two vocabularies differ, also the share of the bank's descriptors
+    that the two assign to different words."""
+    from monocularsfm_torch.ops.vocab import train_visual_vocab
+
+    (a, b), walls = _twice(lambda _: train_visual_vocab(
+        bank, num_words=num_words, device=device), device)
+    equal = bits_equal(a, b)
+    flipped = 0.0
+    if not equal:
+        d = torch.from_numpy(bank).to(a.device)
+        flipped = float((torch.argmax(d @ a.T, 1)
+                         != torch.argmax(d @ b.T, 1)).double().mean())
+    return {"equal": equal, "max_abs_diff": max_abs_diff(a, b),
+            "descriptors": len(bank), "num_words": num_words,
+            "assignments_differing": flipped, "wall_s": walls}
+
+
+def _run_pipeline(images: str, K, device, root: str, dense_max_images: int):
+    """extract, match, reconstruct and export one database and output
+    directory under `root`; returns what the comparison reads."""
+    from monocularsfm_torch import cli
+    from monocularsfm_torch.config import SfMConfig
+    from monocularsfm_torch.database import Database
+
+    cfg = SfMConfig(images_path=images, database_path=f"{root}.db",
+                    output_path=root)
+    cfg.camera.fx, cfg.camera.fy = float(K[0, 0]), float(K[1, 1])
+    cfg.camera.cx, cfg.camera.cy = float(K[0, 2]), float(K[1, 2])
+    cfg.extraction.num_features = 8024
+    cfg.matching.match_type = "sequential"
+    cfg.matching.overlap = 12
+    cfg.bundle.dense_max_images = dense_max_images
+    quiet = lambda *a: None  # noqa: E731
+    cli.cmd_extract(cfg, device=device, log=quiet)
+    cli.cmd_match(cfg, device=device, log=quiet)
+    builder = cli.cmd_reconstruct(cfg, device=device, log=quiet)
+    db = Database(cfg.database_path)
+    try:
+        ids = sorted(db.read_all_images())
+        features = [(db.read_keypoints(i), db.read_descriptors(i)) for i in ids]
+        matches = db.read_all_matches()
+    finally:
+        db.close()
+    m = builder.map
+    files = {}
+    colmap = os.path.join(root, "colmap")
+    for name in sorted(os.listdir(colmap)):
+        if name.endswith(".txt"):
+            with open(os.path.join(colmap, name), "rb") as f:
+                files[f"colmap/{name}"] = f.read()
+    with open(os.path.join(root, "cloud.ply"), "rb") as f:
+        files["cloud.ply"] = f.read()
+    poses = {m.images[i].name: np.concatenate([np.asarray(m.images[i].R).ravel(),
+                                                np.asarray(m.images[i].t).ravel()])
+             for i in m.registered_ids}
+    st = m.statistics()
+    return {"features": features, "matches": matches, "files": files,
+            "poses": poses, "registered": st.num_registered_images,
+            "points": st.num_points3D}
+
+
+def pipeline_twice(imgs, K, device, root: str, dense_max_images: int = 8) -> dict:
+    """`sfm-torch` extract, match, reconstruct and export twice on the
+    same views (written once as PNGs under `root`), each into its own
+    database and output directory.  Compared: the features and match
+    rows of the database, `colmap/*.txt` and `cloud.ply` byte for byte,
+    and the registered poses.  The chip smoke's pipeline settings
+    (8024 features, sequential matching with overlap 12), with global BA
+    dense up to `dense_max_images` images and PCG beyond, so both solvers
+    run."""
+    from monocularsfm_torch.utils.png import write_png
+
+    images = os.path.join(root, "images")
+    os.makedirs(images, exist_ok=True)
+    for i, im in enumerate(imgs):
+        write_png(os.path.join(images, f"frame{i:04d}.png"), im)
+    (a, b), walls = _twice(lambda k: _run_pipeline(
+        images, K, device, os.path.join(root, ("first", "second")[k]),
+        dense_max_images), device)
+    features = len(a["features"]) == len(b["features"]) and all(
+        bits_equal(x, y) for fa, fb in zip(a["features"], b["features"])
+        for x, y in zip(fa, fb))
+    matches = a["matches"].keys() == b["matches"].keys() and all(
+        bits_equal(a["matches"][p], b["matches"][p]) for p in a["matches"])
+    files = {k: a["files"][k] == b["files"].get(k) for k in a["files"]}
+    common = sorted(a["poses"].keys() & b["poses"].keys())
+    pose_diff = max((max_abs_diff(a["poses"][n], b["poses"][n]) for n in common),
+                    default=0.0)
+    equal = (features and matches and all(files.values())
+             and a["files"].keys() == b["files"].keys())
+    return {"equal": equal, "features_equal": features, "matches_equal": matches,
+            "files_equal": files, "pose_max_abs_diff": pose_diff,
+            "registered": [a["registered"], b["registered"]],
+            "points": [a["points"], b["points"]],
+            "descriptors": sum(len(f[1]) for f in a["features"] if f[1] is not None),
+            "database": os.path.join(root, "first.db"), "wall_s": walls}
+
+
+def phase_repeat(dev, renders, db16, pcg_prob):
+    """One input, two runs, the same bits (the helpers above): dense BA
+    on phase_ba_dense's ring and PCG BA on phase_ba_pcg's
+    (`pcg_prob`, on the card) at the same fixed work, train_visual_vocab
+    with REPEAT_WORDS words on every descriptor of the 16-view feature
+    database `db16`, and `sfm-torch` extract, match, reconstruct and export
+    of the first REPEAT_VIEWS renders, each twice.  Prints one {"repeat":
+    ...} line with each item's equality (the pipeline's registered images
+    and points of both runs too), and fails if any pair differs.  Returns
+    the kernels' launches in the two pipelines and the details."""
+    from monocularsfm_torch.ops import blur, match_kernel
+    from monocularsfm_torch.utils.ring_problem import ring_problem
+
+    res = {}
+    prob = ring_problem(BA_CAMS, BA_POINTS, BA_TRACK, seed=2)[0].to(dev)
+    res["dense"] = ba_twice(prob, dev, max_iterations=BA_ITERS, **FIXED_WORK)
+    del prob
+    res["pcg"] = ba_twice(pcg_prob, dev, max_iterations=PCG_LM_ITERS,
+                          solve_mode="pcg", pcg_iters=PCG_INNER, **FIXED_WORK)
+    res["vocab"] = vocab_twice(descriptor_bank(db16), dev, REPEAT_WORDS)
+    blur.reset_launches()
+    match_kernel.reset_launches()
+    with tempfile.TemporaryDirectory() as tmp:
+        res["pipeline"] = pipeline_twice(
+            renders[0][:REPEAT_VIEWS], renders[1], dev, tmp, REPEAT_DENSE_MAX)
+    launches = dict(blur.LAUNCHES, **match_kernel.LAUNCHES)
+    del res["pipeline"]["database"]
+    for name, r in res.items():
+        log(f"[repeat] {name}: {json.dumps(r)}")
+    summary = {name: {"equal": r["equal"]} for name, r in res.items()}
+    summary["pipeline"].update(registered=res["pipeline"]["registered"],
+                               points=res["pipeline"]["points"])
+    print(json.dumps({"repeat": summary}), flush=True)
+    if not all(r["equal"] for r in res.values()):
+        fail(f"one input gave two results: {summary}")
+    if not (launches["blur_vh"] > 0 and launches["match_tile"] > 0):
+        fail(f"repeated pipelines' kernel launches {launches}")
+    return launches, res
+
+
 def profiled_launches(fn):
     """(fn(), device kernel launches, their busy ms) under torch.profiler."""
     from torch.profiler import ProfilerActivity, profile
@@ -1782,7 +2005,9 @@ def main():
         return res
 
     rates = walled("ba_dense", phase_ba_dense, dev)
-    rates.update(walled("ba_pcg", phase_ba_pcg, dev, rates["ba_dense_rmse_final"]))
+    pcg_rates, pcg_prob = walled("ba_pcg", phase_ba_pcg, dev,
+                                 rates["ba_dense_rmse_final"])
+    rates.update(pcg_rates)
     launches_bench, single_pair, rectangular, rates["bench"] = walled(
         "bench", phase_bench, dev)
     par_tmp = tempfile.TemporaryDirectory()
@@ -1793,6 +2018,9 @@ def main():
     launches_alt, rates["pipeline_alt"] = walled("pipeline_alt", phase_pipeline_alt,
                                                  dev, renders)
     launches_gather, rates["gather"] = walled("gather", phase_gather, dev, renders)
+    launches_repeat, rates["repeat"] = walled("repeat", phase_repeat, dev, renders,
+                                              db16, pcg_prob)
+    del pcg_prob
     K_mp = renders[1]
     del renders
     rates["pnp"] = walled("pnp", phase_pnp, dev)
@@ -1814,6 +2042,7 @@ def main():
                 "launches_extract_4000x3000": launches_3200[name],
                 "launches_bench": launches_bench[name],
                 "launches_gather": launches_gather[name],
+                "launches_repeat": launches_repeat[name],
                 "max_abs_err": err, "ms": ms, "plain_ms": plain,
                 "bound_ms": bound, "bound_by": by,
                 "bound_share": bound / ms, "library_ms": library, **extra}

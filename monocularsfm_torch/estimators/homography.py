@@ -75,7 +75,7 @@ def estimate_homography_ransac(u: torch.Tensor, x1: torch.Tensor,
     # Hartley-normalise: the raw pixel DLT's A^T A spans ~1e11 in f32.
     x1n, T1 = _hartley_normalize(x1, mask)
     x2n, T2 = _hartley_normalize(x2, mask)
-    T2inv = torch.linalg.inv(T2)
+    T2inv = torch.linalg.inv_ex(T2)[0]
     sets = sample_minimal_sets(u, 4, mask)                   # (M, 4)
     H = mm(T2inv, _fit_h(x1n[sets], x2n[sets]), T1)          # (M, 3, 3)
     res = transfer_error(H, x1[None], x2[None])              # (M, N)

@@ -8,21 +8,25 @@ one (N, 128) x (128, K) fp32 product and an argmax, which replaces the
 tree's greedy descent.
 
 * training: Lloyd k-means on unit-L2 descriptors (argmax similarity =
-  argmin L2 distance), the per-word sums by `index_add_`;
+  argmin L2 distance), the per-word sums by `segment_sum`
+  (utils/segment.py), in a fixed order on the card as in the reference;
 * image signatures: TF-IDF-weighted bag-of-words vectors, L2-normalised;
 * retrieval: image similarity = (I, K) x (K, I) product; the top-k partners
   per image, ties to the lower index as jax.lax.top_k breaks them.
 
 The products are plain fp32 `torch.matmul` (TF32 off by the package's
-precision pins).  On the card `index_add_` sums in any order, so centroids
-differ from the CPU's by ulps and an argmax between two equally near words
-can flip.
+precision pins).  The card sums each word in another fixed order than the
+CPU, so its centroids differ from the CPU's by ulps and an argmax between
+two equally near words can flip between the devices; on one device, one
+input gives one vocabulary.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from monocularsfm_torch.utils.segment import segment_plan, segment_sum
 
 
 def _kmeans_fit(desc: torch.Tensor, init_idx: torch.Tensor, num_words: int,
@@ -34,7 +38,8 @@ def _kmeans_fit(desc: torch.Tensor, init_idx: torch.Tensor, num_words: int,
     ones = torch.ones(desc.shape[0], dtype=desc.dtype, device=desc.device)
     for _ in range(iterations):
         assign = torch.argmax(desc @ c.T, dim=1)
-        sums = torch.zeros_like(c).index_add_(0, assign, desc)
+        sums = segment_sum(desc, segment_plan(assign, num_words))
+        # Integer-valued f32 below 2^24: exact in any order of the adds.
         counts = torch.zeros(num_words, dtype=desc.dtype,
                              device=desc.device).index_add_(0, assign, ones)
         new = sums / torch.clamp(counts[:, None], min=1.0)
@@ -68,6 +73,7 @@ def quantize(desc: torch.Tensor, mask: torch.Tensor, vocab: torch.Tensor,
     """Hard-assign descriptors (N, D) to words -> word-count histogram
     (num_words,); masked rows count zero."""
     assign = torch.argmax(desc @ vocab.T, dim=1)
+    # Counts of 0/1 masks: integer-valued f32, exact in any order.
     return torch.zeros(num_words, dtype=torch.float32,
                        device=desc.device).index_add_(0, assign, mask.float())
 

@@ -14,7 +14,9 @@ Same algorithm as the reference, written as plain tensor code:
   when long tracks are split across rows (None = one row per point).
   The solve works on the flat list of weighted observations: Jacobian
   blocks are plain (obs, 2, 6) / (obs, 2, 3) tensors, and camera and point
-  sums are `index_add_` over their camera and point indices.
+  sums are segment sums over their camera and point indices
+  (utils/segment.py: in a fixed order on the card, as the reference's
+  `segment_sum`, so one input gives one result).
 * `solve_mode="dense"` builds the reduced camera system
   S = U~ - sum_p Y_p W_p^T densely (a chunked one-hot matmul over points)
   and solves it by a Jacobi-equilibrated Cholesky.  With `refine_focal`
@@ -23,7 +25,7 @@ Same algorithm as the reference, written as plain tensor code:
 * `solve_mode="pcg"` caches the coupling blocks W = Jc^T Jp once per LM
   iteration and runs block-Jacobi preconditioned CG on S matrix-free,
   stopping at ||r|| <= pcg_rtol ||rhs|| or `pcg_iters` steps (the
-  reference's cached-block path).  Its point sums are `index_add_` over
+  reference's cached-block path).  Its point sums are segment sums over
   point indices, so `point_rows` may come in any order (the reference
   routes unsorted rows to its flash path, which solves the same system).
 * The trust-region loop is classic LM radius control as in Ceres.  The
@@ -52,6 +54,7 @@ import numpy as np
 import torch
 
 from monocularsfm_torch.geometry.rotations import angle_axis_to_matrix, skew
+from monocularsfm_torch.utils.segment import segment_plan, segment_sum
 
 
 @dataclasses.dataclass
@@ -355,10 +358,12 @@ def _lm_segment(
     # Only observations of valid points in valid cameras carry weight (the
     # reference multiplies the rest by 0).  They are selected once (one host
     # sync for their count), so no per-observation pass touches padding and
-    # no reduction piles padding's zeros onto camera 0.
+    # no reduction piles padding's zeros onto camera 0.  The plans of the
+    # camera and point sums are built from them once per solve.
     obs = (prob.obs_valid.reshape(-1) & prob.point_valid[pt_all]
            & prob.cam_valid[cam_all]).nonzero()[:, 0]     # (O,)
     cam_o, pt_o = cam_all[obs], pt_all[obs]
+    cam_plan, pt_plan = segment_plan(cam_o, C), segment_plan(pt_o, Pn)
     uv_o = prob.obs_uv.reshape(-1, 2)[obs]
     num_res = torch.tensor(float(obs.numel()), device=dev)  # this rank's
     free_cam = (prob.cam_valid & ~prob.cam_const).to(f32)  # (C,)
@@ -368,12 +373,10 @@ def _lm_segment(
     eye6 = torch.eye(6, dtype=f32, device=dev)
 
     def to_cams(vals):
-        return torch.zeros((C,) + vals.shape[1:], dtype=f32,
-                           device=dev).index_add_(0, cam_o, vals)
+        return segment_sum(vals, cam_plan)
 
     def to_points(vals):
-        return torch.zeros((Pn,) + vals.shape[1:], dtype=f32,
-                           device=dev).index_add_(0, pt_o, vals)
+        return segment_sum(vals, pt_plan)
 
     def project(K, R, t, X):
         """Per-observation q = R X, p = q + t, clamped depth, residual."""

@@ -1,15 +1,18 @@
 """Rank 0 as the controller of a pipeline stage; the other ranks serve.
 
 Inside the pipeline the MapBuilder and the matchers run on rank 0 alone, as
-on one device: RANSAC, registration and LM sum with `index_add_`, which
-sums in any order on the card, so replicated builders could drift apart and
-one rank would wait in a collective its peers never reach.  The other ranks
-run `serve`.  For each sharded call, rank 0 publishes a header (the op, its
-arguments and the shapes of its tensors) in the group's store, broadcasts
-the tensors, and then every rank runs the SPMD function (distributed BA,
-pair-sharded matching) on the same inputs; the result is gathered on rank 0
-by the function itself.  A `stop` header ends the loop.  This is the torch
-form of the JAX package's single-controller dispatch over a mesh.
+on one device.  The port's sums run in a fixed order, so one card repeats
+its own results bit for bit; but replicated builders would agree only while
+every rank computes on the same kind of device with the same libraries (a
+rank on the CPU, or on another card, sums in another order), and a builder
+that drifted would leave one rank waiting in a collective its peers never
+reach.  The other ranks run `serve`.  For each sharded call, rank 0
+publishes a header (the op, its arguments and the shapes of its tensors)
+in the group's store, broadcasts the tensors, and then every rank runs the
+SPMD function (distributed BA, pair-sharded matching) on the same
+inputs; the result is gathered on rank 0 by the function itself.  A `stop`
+header ends the loop.  This is the torch form of the JAX package's
+single-controller dispatch over a mesh.
 
 Headers go through the store, not a collective, because a serving rank may
 wait a long time for the next call (rank 0 extracts features or registers

@@ -33,13 +33,23 @@ from monocularsfm_torch.estimators.homography import decompose_homography
 def _homography_motion(K, H, x1, x2, inl):
     """The H path on the device: Euclidean homography, Faugeras
     decomposition, cheirality triangulation of all 4 candidates.
-    Returns (xn1, xn2, Rs, ts, Xs, fronts, counts)."""
-    H_euc = torch.linalg.inv(K) @ H.float() @ K
-    Rs, ts, _ = decompose_homography(H_euc)
+    Returns (xn1, xn2, Rs, ts, Xs, fronts, counts).
+
+    A singular K has no inverse: the reference carries its non-finite
+    inverse through LAPACK to NaN motions and points, none in front.
+    torch's solvers raise on non-finite input instead, so they get finite
+    stand-ins here and their outputs are set to what the reference gives."""
+    H_euc = torch.linalg.inv_ex(K)[0] @ H.float() @ K
+    ok = torch.isfinite(H_euc).all()
+    eye = torch.eye(3, dtype=H_euc.dtype, device=H_euc.device)
+    Rs, ts, _ = decompose_homography(torch.where(ok, H_euc, eye))
     xn1 = pixels_to_normalized(K, x1)
     xn2 = pixels_to_normalized(K, x2)
-    Xs, fronts, counts = cheirality(Rs, ts, xn1, xn2, inl)
-    return xn1, xn2, Rs, ts, Xs, fronts, counts
+    Xs, fronts, _ = cheirality(Rs, ts, torch.where(ok, xn1, 0.0),
+                               torch.where(ok, xn2, 0.0), inl)
+    Rs, ts, Xs = (torch.where(ok, v, torch.nan) for v in (Rs, ts, Xs))
+    fronts = fronts & ok
+    return xn1, xn2, Rs, ts, Xs, fronts, fronts.sum(-1)
 
 
 @dataclasses.dataclass

@@ -63,11 +63,12 @@ def test_port_never_imports_jax():
         "import monocularsfm_torch.utils.card, monocularsfm_torch.utils.ring_problem\n"
         "import monocularsfm_torch.parallel, monocularsfm_torch.parallel.serve\n"
         "import monocularsfm_torch.parallel.dryrun, monocularsfm_torch.entry\n"
+        "import monocularsfm_torch.utils.segment\n"
         "from monocularsfm_torch.cli import cmd_reconstruct, cmd_export\n"
         "monocularsfm_torch.native.get_lib()\n"
         "import runpy\n"
         "for tool in ('scale_run_torch', 'measure_3200_torch', 'profile_sift_torch',\n"
-        "             'scaling_table_torch'):\n"
+        "             'scaling_table_torch', 'repeat_check', 'ba_ab'):\n"
         "    runpy.run_path(f'tools/{tool}.py', run_name='tool')\n"
         "runpy.run_path('bench_torch.py', run_name='bench_torch')\n"
         "bad = [m for m in sys.modules\n"

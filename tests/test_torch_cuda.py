@@ -486,3 +486,70 @@ def test_vocab_quantize_on_the_card_matches_the_cpu(dev):
     words = vocab.train_visual_vocab(desc, num_words=64, iterations=3, device=dev)
     assert words.device.type == "cuda" and words.shape == (64, 128)
     assert (torch.linalg.norm(words, dim=1) - 1.0).abs().max().item() <= 1e-5
+
+
+def _lm_with_history(prob, max_iterations, **kw):
+    """bundle_adjust one LM iteration at a time (each resuming from the
+    last, which gives the same iterates as one solve): the result, the
+    cost after every iteration and the CG steps in all."""
+    from monocularsfm_torch.optim import bundle_adjust
+
+    state, costs, cg = None, [], 0
+    for k in range(1, max_iterations + 1):
+        out = bundle_adjust(prob, max_iterations=k, init_state=state, **kw)
+        costs.append(out["cost_final"])
+        cg += out["cg_steps"]
+        if out["converged"]:
+            break
+        state = tuple(out[key] for key in ("K", "R", "t", "X", "radius",
+                                           "cost_final", "iterations", "converged"))
+    return out, torch.stack(costs), cg
+
+
+@pytest.mark.parametrize("mode", ["dense", "pcg"])
+def test_bundle_adjust_on_the_card_repeats_bit_for_bit(dev, mode):
+    """One problem solved twice on the card: the same R, t, X, cost after
+    every LM iteration, LM iterations and CG steps (the camera and point
+    sums run in a fixed order, utils/segment.py)."""
+    from monocularsfm_torch.utils.ring_problem import ring_problem
+
+    prob = ring_problem(32, 6000, 6, seed=2,
+                        row_width=3 if mode == "pcg" else None)[0].to(dev)
+    kw = dict(solve_mode=mode, pcg_iters=30, device=dev)
+    (a, ca, ga), (b, cb, gb) = (_lm_with_history(prob, 15, **kw) for _ in range(2))
+    assert a["R"].device.type == "cuda"
+    for k in ("R", "t", "X"):
+        assert torch.equal(a[k], b[k]), k
+    assert torch.equal(ca, cb)
+    assert a["iterations"] == b["iterations"] and ga == gb
+    assert mode == "dense" or ga > 0
+
+
+def test_segment_sum_on_the_card_matches_the_cpu(dev):
+    """The fixed-order sum on the card against index_add_ on the CPU
+    within f32 rounding, and bit for bit against itself."""
+    from monocularsfm_torch.utils.segment import segment_plan, segment_sum
+
+    rng = np.random.default_rng(0)
+    ids = torch.from_numpy(rng.integers(0, 200, 300_000) * 3)   # gaps
+    vals = torch.from_numpy(rng.normal(size=(300_000, 6, 6)).astype(np.float32))
+    cpu = segment_sum(vals, segment_plan(ids, 700))
+    plan = segment_plan(ids.to(dev), 700)
+    gpu = segment_sum(vals.to(dev), plan)
+    assert torch.equal(gpu, segment_sum(vals.to(dev), plan))
+    longest = int(np.bincount(ids.numpy()).max())
+    tol = 2 * longest * np.finfo(np.float32).eps * float(vals.abs().max())
+    assert (gpu.cpu() - cpu).abs().max().item() <= tol
+
+
+def test_vocab_training_on_the_card_repeats_bit_for_bit(dev):
+    """train_visual_vocab twice on the same descriptors gives the same
+    words on the card (random unit descriptors: many near ties)."""
+    from monocularsfm_torch.ops import vocab
+
+    rng = np.random.default_rng(1)
+    desc = rng.normal(size=(60_000, 128)).astype(np.float32)
+    desc /= np.linalg.norm(desc, axis=1, keepdims=True)
+    a, b = (vocab.train_visual_vocab(desc, num_words=512, iterations=5, device=dev)
+            for _ in range(2))
+    assert a.device.type == "cuda" and torch.equal(a, b)

@@ -185,6 +185,54 @@ def test_initializer_matches_reference_with_injected_draws(planar):
     assert abs(so.ave_residual - sj.ave_residual) <= 0.01     # px
 
 
+# Two singular intrinsics: a zero last row (K^-1 does not exist) and a zero
+# focal (the normalised coordinates divide by it as well).
+SINGULAR_K = {
+    "last_row_zero": [[500.0, 0, 320], [0, 500.0, 240], [0, 0, 0]],
+    "fx_zero": [[0.0, 0, 320], [0, 500.0, 240], [0, 0, 1]],
+}
+
+
+@pytest.mark.parametrize("which", sorted(SINGULAR_K))
+def test_singular_K_gives_what_the_reference_gives(which):
+    """The reference inverts a singular K into non-finite values and
+    carries on; so does the port: the homography motion's outputs are
+    finite where the reference's are and nowhere else, with the same
+    cheirality counts, and `initialize` on a plane rejects the pair for
+    the reference's reason."""
+    import jax.numpy as jnp
+
+    from monocularsfm_torch import config as tc
+    from monocularsfm_torch.reconstruction import initializer as TI
+    from monocularsfm_tpu import config as jc
+    from monocularsfm_tpu.reconstruction import initializer as JI
+
+    K = np.array(SINGULAR_K[which])
+    _, uv1, uv2 = _pair_correspondences(planar=True)
+    H = np.array([[1.1, 0.01, 3.0], [0.02, 0.98, -2.0], [1e-4, 2e-5, 1.0]],
+                 np.float32)
+    x1, x2 = (u[:256].astype(np.float32) for u in (uv1, uv2))
+    inl = np.ones(256, bool)
+    ref = JI._homography_motion(*(jnp.asarray(a) for a in (
+        K.astype(np.float32), H, x1, x2, inl)))
+    out = TI._homography_motion(*(torch.from_numpy(a) for a in (
+        K.astype(np.float32), H, x1, x2, inl)))
+    for j, t in zip(ref, out):
+        j, t = np.asarray(j), t.numpy()
+        if j.dtype.kind == "f":
+            np.testing.assert_array_equal(np.isfinite(t), np.isfinite(j))
+        else:
+            np.testing.assert_array_equal(t, j)
+    assert not np.isfinite(np.asarray(ref[2])).any()     # the rotations
+    sj = JI.Initializer(K, _cfg(jc)).initialize(uv1, uv2)[0]
+    init = TI.Initializer(K, _cfg(tc), device="cpu")
+    init._draw = JaxDraws(42)
+    so = init.initialize(uv1, uv2)[0]
+    assert not so.is_succeed and not sj.is_succeed
+    assert (so.method, so.num_inliers, so.fail_reason) == (
+        sj.method, sj.num_inliers, sj.fail_reason)
+
+
 def test_registrant_matches_reference_with_injected_draws():
     from monocularsfm_torch import config as tc
     from monocularsfm_torch.reconstruction.registrant import Registrant as TR
