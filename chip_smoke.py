@@ -39,7 +39,13 @@ patch sampler), the pipeline on 16 of the views in gather mode, and LM
 in segments (`dispatch_iters`) and on shuffled split rows; then
 `phase_repeat`: one input, two runs, the same bits, for dense and PCG BA,
 the vocabulary trainer and a 16-view pipeline (it prints a {"repeat": ...}
-line on standard output).  Last
+line on standard output); then `phase_width`, the main path at its users'
+widths on the card against the CPU: SIFT with the default settings on a
+1280x960 render whose keypoints the 8024 cap cuts, in both samplers, and
+the MapBuilder on the 16-view feature database, matched once on the card
+and built on the card and on the CPU with the same draws made on the
+host (the same registered images, events and solvers; points and camera
+centres within stated tolerances).  Last
 the multi-device layer (`phase_parallel`) on the one card: landmark-sharded
 BA as a world of one NCCL rank in this process and as two gloo ranks
 sharing the card (the dense and the scaling table's PCG ring, against the
@@ -159,6 +165,19 @@ SEG_DENSE_ITERS, SEG_DENSE_STEP, SEG_PCG_STEP, SEG_RTOL = 12, 4, 3, 1e-4
 # the first REPEAT_VIEWS of the main pipeline's renders (global BA dense to
 # REPEAT_DENSE_MAX views, PCG beyond), each run twice and held bit-equal.
 REPEAT_VIEWS, REPEAT_DENSE_MAX, REPEAT_WORDS = 16, 8, 4096
+# The main path at its users' widths, card against CPU (phase_width): SIFT
+# at 1280x960 in both samplers on the first of the pipeline's renders (its
+# keypoints pass the 8024 cap, which cuts them), then the MapBuilder on the
+# WIDTH_VIEWS views of the 16-view database, matched once on the card and
+# built on the card and on the CPU with the same draws, made on the host
+# (HostDraws); global BA dense to WIDTH_DENSE_MAX views and PCG beyond.
+# The card and the CPU sum in other orders (ROADMAP: "Card against CPU"), so
+# the builds agree to tolerances: the same registered images, events and
+# solvers, point counts within WIDTH_POINTS_RTOL, camera centres within
+# WIDTH_CENTRE_PCT of the scene diagonal after a similarity alignment
+# (measured on an H100: 12,699 against 12,718 points, 0.00047%).
+WIDTH_VIEWS, WIDTH_DENSE_MAX = 16, 8
+WIDTH_POINTS_RTOL, WIDTH_CENTRE_PCT = 0.005, 0.01
 PAR_PROBLEMS = (   # (name, (cams, points, track, seed), solver arguments)
     ("dense", (BA_CAMS, BA_POINTS, BA_TRACK, 2),
      dict(max_iterations=BA_ITERS, **FIXED_WORK)),
@@ -1428,6 +1447,162 @@ def phase_repeat(dev, renders, db16, pcg_prob):
     return launches, res
 
 
+class HostDraws:
+    """Stands in for an engine's `_draw(num_hyps, cap)`: uniforms from a CPU
+    torch.Generator seeded as the engine's own, moved to `device`, so that
+    a build on the card and one on the CPU get the same samples."""
+
+    def __init__(self, seed: int, device):
+        self.gen = torch.Generator().manual_seed(seed)
+        self.device = device
+
+    def __call__(self, num_hyps: int, cap: int) -> torch.Tensor:
+        return torch.rand((num_hyps, cap), generator=self.gen).to(self.device)
+
+
+def build_from_database(database_path: str, K, device, events: str,
+                        dense_max_images: int) -> dict:
+    """The MapBuilder on a database's features and matches, as
+    `cmd_reconstruct` sets it up, with HostDraws for the initializer (42)
+    and the registrant (7) and its event log written to `events`."""
+    from monocularsfm_torch.config import SfMConfig
+    from monocularsfm_torch.database import Database
+    from monocularsfm_torch.reconstruction import MapBuilder
+
+    cfg = SfMConfig(database_path=database_path)
+    cfg.camera.fx, cfg.camera.fy = float(K[0, 0]), float(K[1, 1])
+    cfg.camera.cx, cfg.camera.cy = float(K[0, 2]), float(K[1, 2])
+    cfg.bundle.dense_max_images = dense_max_images
+    db = Database(database_path)
+    try:
+        names = db.read_all_images()
+        keypoints = {i: db.read_keypoints(i) for i in names}
+        matches = {p: m for p, m in db.read_all_matches().items() if len(m)}
+    finally:
+        db.close()
+    b = MapBuilder(cfg, device=device)
+    b._log = lambda *a: None
+    b.initializer._draw = HostDraws(42, b.device)
+    b.registrant._draw = HostDraws(7, b.device)
+    b.enable_metrics(events)
+    t0 = time.perf_counter()
+    try:
+        b.setup(matches, keypoints, names=names)
+        st = b.do_build()
+    finally:
+        b.close()
+    wall = time.perf_counter() - t0
+    with open(events) as f:
+        ev = [json.loads(line) for line in f]
+    m = b.map
+    poses = {m.images[i].name: (np.asarray(m.images[i].R), np.asarray(m.images[i].t))
+             for i in m.registered_ids}
+    return {"summary": st, "poses": poses, "wall_s": wall,
+            "events": [(e["event"], e.get("image_id"), e.get("solver")) for e in ev]}
+
+
+def phase_width(dev, renders, db16):
+    """The main path at its users' widths, card against CPU.  (a) SIFT with
+    the default settings on the first 1280x960 render (more keypoints
+    than the 8024 cap keeps) in both samplers: counts within KP_COUNT_TOL,
+    KP_AGREE of the keypoints paired within KP_TOL both ways, paired
+    descriptors within DESC_TOL, as in phase_sift.  (b) The MapBuilder
+    from one database: the 16-view feature database `db16` matched once
+    on the card (the smoke's pipeline settings), then built on the card
+    and on the CPU with the same host-made draws (HostDraws): the same
+    registered images, the same events and global-BA solvers, points and
+    camera centres within the WIDTH_ tolerances.  Returns the kernels'
+    launches (SIFT and matching on the card) and the figures."""
+    import shutil
+
+    from monocularsfm_torch import cli
+    from monocularsfm_torch.config import SfMConfig
+    from monocularsfm_torch.ops import blur, match_kernel
+    from monocularsfm_torch.ops.sift import SIFT
+    from monocularsfm_torch.utils.synthetic import similarity_align
+
+    imgs, K = renders[0], renders[1]
+    res = {}
+    blur.reset_launches()
+    match_kernel.reset_launches()
+    for mode in ("patch", "gather"):
+        t0 = time.perf_counter()
+        kc, dc = SIFT(sample_mode=mode, device="cpu").extract(imgs[0])
+        t1 = time.perf_counter()
+        kg, dg = SIFT(sample_mode=mode, device=dev).extract(imgs[0])
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        j = pair_keypoints(kc, kg)
+        share = min((j >= 0).mean(), (pair_keypoints(kg, kc) >= 0).mean())
+        derr = float(np.abs(dc[j >= 0] - dg[j[j >= 0]]).max())
+        res[f"sift_{mode}"] = {"keypoints_cuda": len(kg), "keypoints_cpu": len(kc),
+                               "paired_share": float(share),
+                               "descriptor_err": derr, "cpu_s": t1 - t0,
+                               "cuda_s": t2 - t1}
+        log(f"[width] SIFT {mode} {MP_W}x{MP_H}: {len(kc)} cpu / {len(kg)} cuda "
+            f"keypoints, {share:.4f} paired within {KP_TOL} px both ways, "
+            f"descriptor err {derr:.3g} | cpu {t1 - t0:.1f}s, cuda {t2 - t1:.2f}s")
+        if (abs(len(kg) - len(kc)) > KP_COUNT_TOL * len(kc) or share < KP_AGREE
+                or derr > DESC_TOL):
+            fail(f"{mode} SIFT cuda vs cpu at {MP_W}x{MP_H}: {len(kg)} vs {len(kc)} "
+                 f"keypoints, paired {share} (need {KP_AGREE}), descriptor err "
+                 f"{derr} (tol {DESC_TOL})")
+    with tempfile.TemporaryDirectory() as tmp:
+        db = os.path.join(tmp, "width.db")
+        shutil.copy(db16, db)
+        cfg = SfMConfig(database_path=db)
+        cfg.matching.match_type = "sequential"
+        cfg.matching.overlap = 12
+        t0 = time.perf_counter()
+        pairs = cli.cmd_match(cfg, device=dev, log=lambda *a: None)
+        res["match_s"] = time.perf_counter() - t0
+        launches = dict(blur.LAUNCHES, **match_kernel.LAUNCHES)
+        card = build_from_database(db, K, dev, os.path.join(tmp, "card.jsonl"),
+                                   WIDTH_DENSE_MAX)
+        host = build_from_database(db, K, "cpu", os.path.join(tmp, "host.jsonl"),
+                                   WIDTH_DENSE_MAX)
+    sc, sh = card["summary"], host["summary"]
+    common = sorted(card["poses"].keys() & host["poses"].keys())
+    cc = np.array([-R.T @ t for R, t in (card["poses"][n] for n in common)])
+    ch = np.array([-R.T @ t for R, t in (host["poses"][n] for n in common)])
+    diag = float(np.linalg.norm(np.ptp(ch, axis=0)))
+    centre_pct = 100.0 * similarity_align(cc, ch)[1] / diag
+    rot = max(float(np.abs(card["poses"][n][0] - host["poses"][n][0]).max())
+              for n in common)
+    solvers = [e[2] for e in card["events"] if e[0] == "global_ba"]
+    res["mapbuilder"] = {
+        "views": WIDTH_VIEWS, "pairs": pairs,
+        "registered": [sc.num_registered, sh.num_registered],
+        "points": [sc.num_points3D, sh.num_points3D],
+        "mean_reproj_px": [sc.mean_reprojection_error, sh.mean_reprojection_error],
+        "centre_rms_pct_of_diagonal": centre_pct, "rotation_max_abs_diff": rot,
+        "events_equal": card["events"] == host["events"],
+        "global_ba_solvers": solvers, "wall_s": [card["wall_s"], host["wall_s"]]}
+    log(f"[width] MapBuilder on {WIDTH_VIEWS} views, card vs cpu: "
+        f"{json.dumps(res['mapbuilder'])}")
+    log(f"[width] launches {launches}")
+    if (set(card["poses"]) != set(host["poses"])
+            or sc.num_registered < WIDTH_VIEWS - 1):
+        fail(f"MapBuilder card vs cpu: registered {sorted(card['poses'])} against "
+             f"{sorted(host['poses'])}")
+    if card["events"] != host["events"] or "pcg" not in solvers:
+        fail(f"MapBuilder card vs cpu: events {card['events']} against "
+             f"{host['events']}")
+    if abs(sc.num_points3D - sh.num_points3D) > WIDTH_POINTS_RTOL * sh.num_points3D:
+        fail(f"MapBuilder card vs cpu: {sc.num_points3D} against {sh.num_points3D} "
+             f"points (tol {WIDTH_POINTS_RTOL})")
+    if not centre_pct < WIDTH_CENTRE_PCT:
+        fail(f"MapBuilder card vs cpu: camera centres {centre_pct}% of the "
+             f"diagonal apart (tol {WIDTH_CENTRE_PCT}%)")
+    # blur_vh once for the base and once per octave of each SIFT on the
+    # card, match_tile once per batch of pairs.
+    expect = {"blur_vh": 2 * (1 + SIFT().num_octaves(MP_H, MP_W)),
+              "match_tile": -(-pairs // cfg.matching.pair_batch)}
+    if any(launches[k] != n for k, n in expect.items()):
+        fail(f"width phase kernel launches {launches}, expected {expect}")
+    return launches, res
+
+
 def profiled_launches(fn):
     """(fn(), device kernel launches, their busy ms) under torch.profiler."""
     from torch.profiler import ProfilerActivity, profile
@@ -2020,6 +2195,7 @@ def main():
     launches_gather, rates["gather"] = walled("gather", phase_gather, dev, renders)
     launches_repeat, rates["repeat"] = walled("repeat", phase_repeat, dev, renders,
                                               db16, pcg_prob)
+    launches_width, rates["width"] = walled("width", phase_width, dev, renders, db16)
     del pcg_prob
     K_mp = renders[1]
     del renders
@@ -2043,6 +2219,7 @@ def main():
                 "launches_bench": launches_bench[name],
                 "launches_gather": launches_gather[name],
                 "launches_repeat": launches_repeat[name],
+                "launches_width": launches_width[name],
                 "max_abs_err": err, "ms": ms, "plain_ms": plain,
                 "bound_ms": bound, "bound_by": by,
                 "bound_share": bound / ms, "library_ms": library, **extra}

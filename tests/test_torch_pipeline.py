@@ -161,3 +161,39 @@ def test_cli_refuses_cuda_without_a_card(runs, tmp_path):
     for cmd in ("reconstruct", "pipeline"):
         with pytest.raises(RuntimeError, match="cuda"):
             torch_cli.main([cmd, str(cfg_path)])
+
+
+def test_reconstruction_agrees_with_reference_on_the_same_database(runs, tmp_path):
+    """Both packages' `cmd_reconstruct` on copies of the port's database
+    (the same features and verified matches), the port with the JAX
+    package's RANSAC draws: the same registered images, point counts within
+    5% and mean reprojection errors within 0.05 px of each other (measured:
+    4 of 4 registered on both, 625 points each, 0.0579857 against
+    0.0579862 px)."""
+    from monocularsfm_torch import cli as torch_cli, config as torch_config
+    from monocularsfm_tpu import cli as jax_cli, config as jax_config
+    from test_torch_reconstruction import patch_engine_draws
+
+    cfg_t, (K, _, _) = runs[4], runs[6]
+    quiet = lambda *a: None  # noqa: E731
+    builders = {}
+    for name, module in (("jax", jax_config), ("torch", torch_config)):
+        db = tmp_path / f"{name}.db"
+        shutil.copy(cfg_t.database_path, db)
+        cfg = _config(module, cfg_t.images_path, db)
+        cfg.output_path = str(tmp_path / f"{name}_out")
+        cfg.camera.fx, cfg.camera.fy = K[0, 0], K[1, 1]
+        cfg.camera.cx, cfg.camera.cy = K[0, 2], K[1, 2]
+        cfg.initializer.init_min_num_inliers = 50
+        if name == "jax":
+            builders[name] = jax_cli.cmd_reconstruct(cfg, log=quiet)
+            continue
+        with pytest.MonkeyPatch.context() as mp:
+            patch_engine_draws(mp)
+            builders[name] = torch_cli.cmd_reconstruct(cfg, device="cpu", log=quiet)
+    mj, mt = builders["jax"].map, builders["torch"].map
+    sj, st = mj.statistics(), mt.statistics()
+    assert sorted(mt.registered_ids) == sorted(mj.registered_ids)
+    assert len(mt.registered_ids) >= 3
+    assert abs(st.num_points3D - sj.num_points3D) <= 0.05 * sj.num_points3D
+    assert abs(st.mean_reprojection_error - sj.mean_reprojection_error) <= 0.05

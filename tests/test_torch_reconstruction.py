@@ -25,6 +25,17 @@ class JaxDraws:
         return torch.from_numpy(np.array(jax.random.uniform(k, (m, n))))
 
 
+def patch_engine_draws(mp):
+    """Under the MonkeyPatch `mp`, the port's Initializer and Registrant
+    draw what the JAX engines draw (seeds 42 and 7): for a pipeline, whose
+    stages build their own engines."""
+    from monocularsfm_torch.reconstruction import initializer, registrant
+
+    init, reg = JaxDraws(42), JaxDraws(7)
+    mp.setattr(initializer.Initializer, "_draw", lambda self, m, n: init(m, n))
+    mp.setattr(registrant.Registrant, "_draw", lambda self, m, n: reg(m, n))
+
+
 def _make_state(seed=0, num_cameras=6, num_points=300, register=(0, 1, 2),
                 pkg="torch"):
     """The state of tests/test_native.py, in either package."""
