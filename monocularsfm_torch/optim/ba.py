@@ -47,6 +47,7 @@ Same algorithm as the reference, written as plain tensor code:
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any
 
@@ -55,6 +56,7 @@ import torch
 
 from monocularsfm_torch.geometry.rotations import angle_axis_to_matrix, skew
 from monocularsfm_torch.utils.segment import segment_plan, segment_sum
+from monocularsfm_torch.utils.spans import span
 
 
 @dataclasses.dataclass
@@ -280,20 +282,22 @@ def bundle_adjust(
               min_lm_diagonal=min_lm_diagonal, max_lm_diagonal=max_lm_diagonal,
               pcg_rtol=pcg_rtol, group=group, schur_chunk=schur_chunk)
     state, first, cg_steps = init_state, None, 0
-    while True:
-        if dispatch_iters is None:
-            limit = max_iterations
-        else:
-            start = 0 if state is None else int(state[6])
-            limit = min(start + dispatch_iters, max_iterations)
-        out = _lm_segment(prob, limit, state, **kw)
-        cg_steps += out["cg_steps"]
-        if first is None:
-            first = out
-        if out["iterations"] >= max_iterations or out["converged"]:
-            break
-        state = tuple(out[k] for k in ("K", "R", "t", "X", "radius",
-                                       "cost_final", "iterations", "converged"))
+    with span("ba.solve"):
+        while True:
+            if dispatch_iters is None:
+                limit = max_iterations
+            else:
+                start = 0 if state is None else int(state[6])
+                limit = min(start + dispatch_iters, max_iterations)
+            out = _lm_segment(prob, limit, state, **kw)
+            cg_steps += out["cg_steps"]
+            if first is None:
+                first = out
+            if out["iterations"] >= max_iterations or out["converged"]:
+                break
+            state = tuple(out[k] for k in ("K", "R", "t", "X", "radius",
+                                           "cost_final", "iterations",
+                                           "converged"))
     out.update(cost_initial=first["cost_initial"],
                rmse_initial=first["rmse_initial"], cg_steps=cg_steps)
     return out
@@ -333,6 +337,9 @@ def _lm_segment(
             "dense Schur requires the identity point_rows map (one row per "
             "point); build the problem unsplit or use solve_mode='pcg'")
 
+    # The segment's set-up, up to its first LM iteration: the observations'
+    # selection and the sums' plans (their host reads) and the first cost.
+    prepare = span("ba.prepare")
     f32 = torch.float32
     dev = prob.R.device
     if group is None:
@@ -360,8 +367,10 @@ def _lm_segment(
     # sync for their count), so no per-observation pass touches padding and
     # no reduction piles padding's zeros onto camera 0.  The plans of the
     # camera and point sums are built from them once per solve.
-    obs = (prob.obs_valid.reshape(-1) & prob.point_valid[pt_all]
-           & prob.cam_valid[cam_all]).nonzero()[:, 0]     # (O,)
+    weighted = (prob.obs_valid.reshape(-1) & prob.point_valid[pt_all]
+                & prob.cam_valid[cam_all])
+    with span("host_read.obs_select"):
+        obs = weighted.nonzero()[:, 0]                      # (O,)
     cam_o, pt_o = cam_all[obs], pt_all[obs]
     cam_plan, pt_plan = segment_plan(cam_o, C), segment_plan(pt_o, Pn)
     uv_o = prob.obs_uv.reshape(-1, 2)[obs]
@@ -481,7 +490,7 @@ def _lm_segment(
             return sol[:C * 6].reshape(C, 6), sol[C * 6:]
         return sol.reshape(C, 6), None
 
-    def try_step_dense(K, R, t, X, lam):
+    def try_step_dense(K, R, t, X, lam, phases):
         r, Jc, Jp, p, inv_z = linearize(K, R, t, X)
         cost = 0.5 * (r * r).sum()
         U = to_cams(_tmm(Jc, Jc))
@@ -531,49 +540,68 @@ def _lm_segment(
             step_sq = step_sq + (df * df).sum()
         return cost, new_cost, pred, K_new, R_new, t_new, X_new, step_sq, g_inf, 0
 
-    def try_step_pcg(K, R, t, X, lam):
-        r, Jc, Jp, _, _ = linearize(K, R, t, X)
-        cost = 0.5 * (r * r).sum()
-        U = to_cams(_tmm(Jc, Jc))
-        g_c = to_cams(-_mv(Jc.transpose(-1, -2), r))
-        V = to_points(_tmm(Jp, Jp))
-        g_p = to_points(-_mv(Jp.transpose(-1, -2), r))
-        W = _tmm(Jc, Jp)                                       # cached (O, 6, 3)
-        del Jc, Jp
-        cost, U, g_c = psum(cost, U, g_c)
-        g_inf = gradient_inf(g_c, g_p)
-        U_d, V_d = damp(U, V, lam)
-        Vi = _inv3x3(V_d)
-        Uinv = torch.linalg.inv_ex(U_d)[0]
+    def cg_continues(k, res, tol2):
+        """The CG loop's test before step k + 1: none at `pcg_iters`, else
+        ||res||^2 > tol2, read on the host."""
+        if k >= pcg_iters:
+            return False
+        more = (res * res).sum() > tol2
+        with span("host_read.cg_test"):
+            return bool(more)
 
-        def WT_pts(x):     # (C, 6) -> (Pn, 3): per-point sum of W^T x_cam
-            return to_points(_mv(W.transpose(-1, -2), x[cam_o]))
+    def try_step_pcg(K, R, t, X, lam, phases):
+        """One LM step by PCG.  Its phases are spans that each end at a
+        host read, which drains the card's queue: `ba.linearize` up to the
+        CG loop's first test, one `ba.cg_step` a loop body with the test
+        after it, and `ba.step_eval`, which `phases` closes after the LM
+        exit read."""
+        with span("ba.linearize"):
+            r, Jc, Jp, _, _ = linearize(K, R, t, X)
+            cost = 0.5 * (r * r).sum()
+            U = to_cams(_tmm(Jc, Jc))
+            g_c = to_cams(-_mv(Jc.transpose(-1, -2), r))
+            V = to_points(_tmm(Jp, Jp))
+            g_p = to_points(-_mv(Jp.transpose(-1, -2), r))
+            W = _tmm(Jc, Jp)                                   # cached (O, 6, 3)
+            del Jc, Jp
+            cost, U, g_c = psum(cost, U, g_c)
+            g_inf = gradient_inf(g_c, g_p)
+            U_d, V_d = damp(U, V, lam)
+            Vi = _inv3x3(V_d)
+            Uinv = torch.linalg.inv_ex(U_d)[0]
 
-        def Wy_cams(y):    # (Pn, 3) -> (C, 6): per-camera sum of W y_p
-            return to_cams(_mv(W, y[pt_o]))
+            def WT_pts(x):     # (C, 6) -> (Pn, 3): per-point sum of W^T x_cam
+                return to_points(_mv(W.transpose(-1, -2), x[cam_o]))
 
-        def S_mul(x):
-            # U_d x is replicated: only the point-sharded term is reduced.
-            return _mv(U_d, x) - psum(Wy_cams(_mv(Vi, WT_pts(x))))[0]
+            def Wy_cams(y):    # (Pn, 3) -> (C, 6): per-camera sum of W y_p
+                return to_cams(_mv(W, y[pt_o]))
 
-        rhs = g_c - psum(Wy_cams(_mv(Vi, g_p)))[0]
-        x = torch.zeros_like(rhs)
-        res = rhs
-        z = _mv(Uinv, res)
-        pvec = z
-        rz = (res * z).sum()
-        tol2 = (pcg_rtol * pcg_rtol) * (rhs * rhs).sum()
-        k = 0
-        while k < pcg_iters and bool((res * res).sum() > tol2):
-            Sp = S_mul(pvec)
-            alpha = rz / torch.clamp((pvec * Sp).sum(), min=1e-20)
-            x = x + alpha * pvec
-            res = res - alpha * Sp
+            def S_mul(x):
+                # U_d x is replicated: only the point-sharded term is reduced.
+                return _mv(U_d, x) - psum(Wy_cams(_mv(Vi, WT_pts(x))))[0]
+
+            rhs = g_c - psum(Wy_cams(_mv(Vi, g_p)))[0]
+            x = torch.zeros_like(rhs)
+            res = rhs
             z = _mv(Uinv, res)
-            rz_new = (res * z).sum()
-            pvec = z + (rz_new / torch.clamp(rz, min=1e-20)) * pvec
-            rz = rz_new
-            k += 1
+            pvec = z
+            rz = (res * z).sum()
+            tol2 = (pcg_rtol * pcg_rtol) * (rhs * rhs).sum()
+            k = 0
+            more = cg_continues(k, res, tol2)
+        while more:
+            with span("ba.cg_step"):
+                Sp = S_mul(pvec)
+                alpha = rz / torch.clamp((pvec * Sp).sum(), min=1e-20)
+                x = x + alpha * pvec
+                res = res - alpha * Sp
+                z = _mv(Uinv, res)
+                rz_new = (res * z).sum()
+                pvec = z + (rz_new / torch.clamp(rz, min=1e-20)) * pvec
+                rz = rz_new
+                k += 1
+                more = cg_continues(k, res, tol2)
+        phases.enter_context(span("ba.step_eval"))
         dc = x * free_cam[:, None]
         dp = _mv(Vi, g_p - WT_pts(dc)) * pv[:, None]
         # Predicted reduction from the cached blocks (g = -J^T r):
@@ -601,27 +629,32 @@ def _lm_segment(
     radius = torch.as_tensor(radius, dtype=f32, device=dev)
     cost = torch.as_tensor(cost, dtype=f32, device=dev)
     it, done, cg_steps = int(it), bool(done), 0
+    prepare.close()
     while it < max_iterations and not done:
-        (cost_cur, new_cost, pred, K_new, R_new, t_new, X_new, step_sq,
-         g_inf, k) = try_step(K, R, t, X, 1.0 / radius)
-        cg_steps += k
-        rho = (cost_cur - new_cost) / torch.clamp(pred, min=1e-20)
-        accept = (rho > 0) & (new_cost < cost_cur) & torch.isfinite(new_cost)
-        # Ceres-style radius update.
-        shrink = 1.0 - (2.0 * rho - 1.0) ** 3
-        radius_new = torch.where(accept, radius / torch.clamp(shrink, min=1.0 / 3.0),
-                                 radius / 2.0)
-        radius = torch.clamp(radius_new, 1e-16, 1e16)
-        K = torch.where(accept, K_new, K)
-        R = torch.where(accept, R_new, R)
-        t = torch.where(accept, t_new, t)
-        X = torch.where(accept, X_new, X)
-        cost = torch.where(accept, new_cost, cost_cur)
-        f_conv = accept & ((cost_cur - new_cost).abs() <= function_tolerance * cost_cur)
-        x_conv = accept & (torch.sqrt(step_sq) <= parameter_tolerance)
-        g_conv = g_inf <= gradient_tolerance
-        stuck = ~accept & (radius <= 1e-14)
-        done = bool(f_conv | x_conv | g_conv | stuck)
+        with contextlib.ExitStack() as phases:
+            (cost_cur, new_cost, pred, K_new, R_new, t_new, X_new, step_sq,
+             g_inf, k) = try_step(K, R, t, X, 1.0 / radius, phases)
+            cg_steps += k
+            rho = (cost_cur - new_cost) / torch.clamp(pred, min=1e-20)
+            accept = (rho > 0) & (new_cost < cost_cur) & torch.isfinite(new_cost)
+            # Ceres-style radius update.
+            shrink = 1.0 - (2.0 * rho - 1.0) ** 3
+            radius_new = torch.where(
+                accept, radius / torch.clamp(shrink, min=1.0 / 3.0), radius / 2.0)
+            radius = torch.clamp(radius_new, 1e-16, 1e16)
+            K = torch.where(accept, K_new, K)
+            R = torch.where(accept, R_new, R)
+            t = torch.where(accept, t_new, t)
+            X = torch.where(accept, X_new, X)
+            cost = torch.where(accept, new_cost, cost_cur)
+            f_conv = accept & ((cost_cur - new_cost).abs()
+                               <= function_tolerance * cost_cur)
+            x_conv = accept & (torch.sqrt(step_sq) <= parameter_tolerance)
+            g_conv = g_inf <= gradient_tolerance
+            stuck = ~accept & (radius <= 1e-14)
+            stop = f_conv | x_conv | g_conv | stuck
+            with span("host_read.lm_exit"):
+                done = bool(stop)
         it += 1
     denom = torch.clamp(num_res, min=1.0)
     reproj = psum(torch.linalg.norm(project(K, R, t, X)[0], dim=-1).sum())[0]

@@ -21,6 +21,7 @@ and global BA is landmark-sharded over every rank, which serve it
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -38,6 +39,7 @@ from monocularsfm_torch.reconstruction.register_graph import RegisterGraph
 from monocularsfm_torch.reconstruction.registrant import Registrant
 from monocularsfm_torch.reconstruction.scene_graph import SceneGraph
 from monocularsfm_torch.reconstruction.triangulator import Triangulator
+from monocularsfm_torch.utils.spans import span
 from monocularsfm_torch.utils.timer import Timer
 
 
@@ -104,11 +106,18 @@ class MapBuilder:
             out = config.output_path or "."
             self.viz = AsyncVisualization(f"{out}/viz", every_n_updates=6).start()
 
+    @contextlib.contextmanager
+    def _phase(self, name: str):
+        """The build's phase `name`: its Timer, and the span
+        `map_builder.<name>` in a torch.profiler trace (`profile_dir`)."""
+        with self.timers[name], span(f"map_builder.{name}"):
+            yield
+
     # -- setup ---------------------------------------------------------------
     def setup(self, matches: dict, keypoints: dict, colors: dict | None = None,
               names: dict | None = None):
         """matches: {(id1, id2): (N,2) int}, keypoints: {id: (N,>=2) float}."""
-        with self.timers["setup"]:
+        with self._phase("setup"):
             num_kpts = {i: len(k) for i, k in keypoints.items()}
             self.scene_graph.load(
                 matches, num_kpts, min_num_matches=self.cfg.map_builder.min_num_matches
@@ -149,7 +158,7 @@ class MapBuilder:
                 yield first, second
 
     def try_initialize(self) -> bool:
-        with self.timers["initialize"]:
+        with self._phase("initialize"):
             for id1, id2 in self._find_init_pairs(self.cfg.map_builder.max_num_init_trials):
                 pairs, uv1, uv2 = self.map.get_2d2d_between(id1, id2)
                 if len(pairs) < self.cfg.initializer.init_min_num_inliers:
@@ -181,7 +190,7 @@ class MapBuilder:
 
     # -- registration --------------------------------------------------------
     def try_register(self, image_id: int) -> bool:
-        with self.timers["register"]:
+        with self._phase("register"):
             kpt_idx, pids, uv, xyz = self.map.get_2d3d(image_id)
             stats, R, t, inl = self.registrant.register(xyz, uv)
             if not stats.is_succeed:
@@ -211,7 +220,7 @@ class MapBuilder:
         return True
 
     def triangulate_new(self, image_id: int) -> int:
-        with self.timers["triangulate"]:
+        with self._phase("triangulate"):
             cand = self.map.get_triangulation_tracks(
                 image_id, max_track=self.triangulator.T
             )
@@ -258,7 +267,7 @@ class MapBuilder:
                 for k, v in out.items()}
 
     def local_ba(self, image_id: int):
-        with self.timers["local_ba"]:
+        with self._phase("local_ba"):
             prob, image_ids, pids = self.map.get_local_ba_data(
                 image_id, window=self.cfg.map_builder.local_ba_window
             )
@@ -289,7 +298,7 @@ class MapBuilder:
             return out
 
     def global_ba(self):
-        with self.timers["global_ba"]:
+        with self._phase("global_ba"):
             bcfg = self.cfg.bundle
             n_imgs = len(self.map.registered_ids)
             # Solver policy (CeresBundleOptimizer.cpp:262-276): dense Schur
@@ -380,8 +389,8 @@ class MapBuilder:
 
     def maintain_tracks(self, point_ids):
         mb = self.cfg.map_builder
-        with self.timers["filter"]:
-            with self.timers["filter_pass"]:
+        with self._phase("filter"):
+            with self._phase("filter_pass"):
                 self.map.filter_points(
                     point_ids, mb.filter_max_error_px,
                     mb.filter_min_tri_angle_deg
@@ -391,12 +400,12 @@ class MapBuilder:
                 arr = np.asarray(list(ids), np.int64).reshape(-1)
                 return arr[self.map._alive[arr]] if len(arr) else arr
 
-            with self.timers["complete_pass"]:
+            with self._phase("complete_pass"):
                 self.map.complete_points(
                     _alive(point_ids),
                     mb.complete_max_error_px, mb.complete_max_transitivity,
                 )
-            with self.timers["merge_pass"]:
+            with self._phase("merge_pass"):
                 self.map.merge_points(
                     _alive(point_ids),
                     mb.merge_max_error_px,
@@ -423,7 +432,7 @@ class MapBuilder:
         return summary
 
     def _do_build(self) -> BuildSummary:
-        with self.timers["total"]:
+        with self._phase("total"):
             if len(self.map.registered_ids) >= 2:
                 self._log("[build] map already initialized (resume)")
             elif not self.try_initialize():

@@ -32,6 +32,8 @@ import math
 
 import torch
 
+from monocularsfm_torch.utils.spans import span
+
 WIDTH = 32
 
 
@@ -71,8 +73,10 @@ def fixed_order_plan(ids: torch.Tensor, num_segments: int) -> SegmentPlan:
     counts = bounds.diff()
     most, in_order = 0, True
     if n:
-        most, lo, hi, in_order = torch.stack([
-            counts.max(), seg[0], seg[-1], (seg == ids).all().long()]).tolist()
+        facts = torch.stack([counts.max(), seg[0], seg[-1],
+                             (seg == ids).all().long()])
+        with span("host_read.segment_plan"):
+            most, lo, hi, in_order = facts.tolist()
         if lo < 0 or hi >= num_segments:
             raise ValueError(f"segment ids span [{lo}, {hi}], outside "
                              f"[0, {num_segments})")
@@ -82,7 +86,9 @@ def fixed_order_plan(ids: torch.Tensor, num_segments: int) -> SegmentPlan:
     size = max(WIDTH, math.isqrt(most - 1) + 1)
     bags = (counts + size - 1) // size
     first = torch.cumsum(bags, 0) - bags
-    total = int(bags.sum())
+    total_bags = bags.sum()
+    with span("host_read.segment_plan"):
+        total = int(total_bags)
     bag_seg = torch.repeat_interleave(torch.arange(num_segments, device=dev),
                                       bags, output_size=total)
     starts = bounds[bag_seg] + (torch.arange(total, device=dev) - first[bag_seg]) * size
