@@ -6,9 +6,11 @@ Builds the CUDA kernels from monocularsfm_torch/csrc, checks each against its
 plain PyTorch version on the card at the main path's shapes (the fused
 blur also bit for bit against the two single passes; the matcher over 16
 pairs at capacity 8192, plus a case of exact ties and a fully masked
-image that must equal the plain statistics), times each beside its
-plain version, the bound of its work and one library call of the same
-function where there is one, checks the port's SIFT on the card
+image that must equal the plain statistics; the Schur product of bundle
+adjustment's PCG path at the neu.global-ba bundle's shapes, also twice bit
+for bit), times each beside its plain version, the bound of its work and
+one library call of the same function where there is one, checks the
+port's SIFT on the card
 against the same SIFT on the CPU, then drives the port's extract and match
 stages (`sfm-torch extract`, `match`, `check-matches`) on 8 rendered
 1280x960 images at the default configuration.  Then bundle adjustment on
@@ -77,6 +79,10 @@ BLUR_TOL = 1e-5
 MATCH_CAP, MATCH_IMAGES = 8192, 16   # one batch of 16 pairs (config.py)
 MATCH_AGREE = 0.999
 SIM_TOL = 1e-4                  # f32 sums of 128 bf16 products, any order
+# The Schur product's kernel against its plain version: the largest
+# difference over the largest entry; f32 sums of the same terms (about
+# 2,000 a camera) in two orders.
+SCHUR_RTOL = 1e-5
 SIFT_SIZE = (480, 640)
 KP_TOL, DESC_TOL, KP_AGREE = 0.01, 2e-3, 0.99
 SLICE_IMAGES, SLICE_W, SLICE_H = 8, 1280, 960
@@ -226,9 +232,9 @@ def phase_build():
     from monocularsfm_torch.ops import _build
 
     t0 = time.perf_counter()
-    path = _build.build()
-    _build.lib()
-    log(f"[build] {path.name} in {time.perf_counter() - t0:.2f}s "
+    paths = _build.build()
+    log(f"[build] {', '.join(p.name for p in paths)} in "
+        f"{time.perf_counter() - t0:.2f}s "
         f"(nvcc {_build.build_seconds if _build.build_seconds is not None else 'cached'})")
     for line in _build.build_log.splitlines():
         if "registers" in line or "spill" in line or "C75" in line:
@@ -384,6 +390,96 @@ def check_matcher(dev):
         f"bf16 bmm of the product alone {t['library']:.3f} ms, for "
         f"{len(pairs)} pairs")
     return sim_err, agree, t
+
+
+def schur_inputs(dev):
+    """The Schur product's inputs at the neu.global-ba bundle's shapes: its
+    observations as the solver selects them (sfmbench's make_problem: 1,329
+    cameras in 2,048 slots, 542,084 points in 2**20, 2,710,444
+    observations), random blocks of the solver's kinds (W, the inverses of
+    symmetric positive definite V and U_d, x), and the plan."""
+    from monocularsfm_torch.config import BundleConfig
+    from monocularsfm_torch.ops import schur
+    from monocularsfm_torch.utils.segment import segment_plan
+    from sfmbench.lib.common import camera_of
+    from sfmbench.stages.global_ba import make_problem
+
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "sfmbench", "configs", "neu.json")) as f:
+        config = json.load(f)
+    ba = dict(config["ba"], track_width=BundleConfig().track_width)
+    prob = make_problem(ba, camera_of(config), dev)[0]
+    T = prob["obs_cam"].shape[1]
+    C, P = prob["R"].shape[0], prob["X"].shape[0]
+    pt_all = prob["point_rows"][:, None].expand(-1, T).reshape(-1)
+    cam_all = prob["obs_cam"].reshape(-1)
+    obs = (prob["obs_valid"].reshape(-1) & prob["point_valid"][pt_all]
+           & prob["cam_valid"][cam_all]).nonzero()[:, 0]
+    cam_o, pt_o = cam_all[obs], pt_all[obs]
+    del prob, obs
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    n = cam_o.numel()
+    W = torch.randn((n, 6, 3), generator=g, device=dev)
+    A = torch.randn((P, 3, 3), generator=g, device=dev)
+    Vi = torch.linalg.inv(A @ A.transpose(1, 2)
+                          + torch.eye(3, device=dev)).contiguous()
+    B = torch.randn((C, 6, 6), generator=g, device=dev)
+    U = B @ B.transpose(1, 2) + 6 * torch.eye(6, device=dev)
+    x = torch.randn((C, 6), generator=g, device=dev)
+    plan = schur.schur_plan(segment_plan(cam_o, C), segment_plan(pt_o, P))
+    return W, Vi, x, U, plan, int(torch.unique(pt_o).numel())
+
+
+def check_schur(dev):
+    """The Schur product's kernel pair (csrc/schur.cu) at the neu.global-ba
+    shapes: against the plain version on the card, twice bit for bit, the
+    launch counter, then timed beside its byte bound and the plain
+    version.  No single PyTorch call computes the product: no library
+    time.  Prints ptxas's registers and spills of the two passes (from the
+    build's log beside the library)."""
+    from monocularsfm_torch.ops import _build, schur
+    from monocularsfm_torch.utils import roofline
+
+    lines = _build.build(["schur"])[0].with_suffix(".log").read_text().splitlines()
+    for i, line in enumerate(lines):
+        if "Compiling entry function" in line and ("points_pass" in line
+                                                   or "cams_pass" in line):
+            name = "points_pass" if "points_pass" in line else "cams_pass"
+            used = [ln.strip() for ln in lines[i + 1:i + 4]
+                    if "registers" in ln or "spill" in ln]
+            log(f"[schur] ptxas {name}: {' | '.join(used)}")
+    W, Vi, x, U, plan, points = schur_inputs(dev)
+    n, C = W.shape[0], x.shape[0]
+    schur.reset_launches()
+    out = schur.schur_product(W, Vi, x, plan, U)
+    again = schur.schur_product(W, Vi, x, plan, U)
+    torch.cuda.synchronize()
+    plain = schur.schur_product_plain(W, Vi, x, plan, U)
+    err = (out - plain).abs().max().item() / plain.abs().max().item()
+    equal = bits_equal(out, again)
+    log(f"[schur] {n} observations, {points} points, {C} camera slots: "
+        f"kernel vs plain {err:.3g} of the largest entry, two calls equal "
+        f"{equal}, launches {schur.LAUNCHES}")
+    if not (err <= SCHUR_RTOL and equal
+            and schur.LAUNCHES == {"schur_points": 2, "schur_cams": 2}):
+        fail(f"schur kernel: error {err} (tol {SCHUR_RTOL}), repeat equal "
+             f"{equal}, launches {schur.LAUNCHES}")
+    t = dict(kernel=time_ms(lambda: schur.schur_product(W, Vi, x, plan, U), 50),
+             plain=time_ms(lambda: schur.schur_product_plain(W, Vi, x, plan, U), 10))
+    nbytes, ops = roofline.schur_work(n, points, C, plan.order is not None)
+    t["bound"], t["bound_by"] = roofline.bound(nbytes, ops, "fp32")
+    log(f"[schur] kernel pair {t['kernel']:.4f} ms ({nbytes / t['kernel'] / 1e6:.0f} "
+        f"GB/s of {nbytes / 1e6:.1f} MB), bound {t['bound']:.4f} ms "
+        f"({t['bound_by']}, {100 * t['bound'] / t['kernel']:.1f}%), plain "
+        f"{t['plain']:.4f} ms, library: none (no single PyTorch call)")
+    return {"name": "schur_product", "route": "cuda",
+            "source": "monocularsfm_torch/csrc/schur.cu",
+            "replaces": None, "max_rel_err": err, "equal_twice": equal,
+            "ms": t["kernel"], "plain_ms": t["plain"], "bound_ms": t["bound"],
+            "bound_by": t["bound_by"], "bound_share": t["bound"] / t["kernel"],
+            "library_ms": None,
+            "library_is": "none: no single PyTorch call computes this product",
+            "shape": {"observations": n, "points": points, "camera_slots": C}}
 
 
 def phase_sift(dev):
@@ -2168,6 +2264,7 @@ def main():
     phase_build()
     blur_rows = check_blur(dev)
     sim_err, agree, tm = check_matcher(dev)
+    schur_entry = check_schur(dev)
     phase_sift(dev)
     launches_slice, ips, pps = phase_slice(dev)
     walls = {}
@@ -2255,6 +2352,7 @@ def main():
               launches_parallel=rates["parallel"]["match_launches"],
               single_pair=single_pair, rectangular=rectangular,
               shape={"pairs": MATCH_IMAGES, "capacity": MATCH_CAP}),
+        schur_entry,
     ]
     print(smi)
     print(json.dumps({"kernels": kernels, "extract_images_per_s": ips,

@@ -578,8 +578,4 @@ int sfm_blur_h(const float* in, const float* taps, float* out, int B, int H,
   return (int)launch_h<0, 0>(in, taps, out, B, H, W, C, T, st);
 }
 
-const char* sfm_error_string(int code) {
-  return cudaGetErrorString((cudaError_t)code);
-}
-
 }  // extern "C"

@@ -1,13 +1,15 @@
-"""Builds csrc/*.cu into one shared library at first use and loads it.
+"""Builds each csrc/*.cu into a shared library at first use and loads it.
 
-nvcc compiles the sources with a plain C interface (no PyTorch headers, so
-the build takes seconds), one process per source, all started together,
-then links them into `build/monocularsfm_torch/` at the root of the
-checkout; the file name carries a hash of the sources, so an edited kernel
-is rebuilt.  `build_log` keeps what ptxas said of each kernel (registers,
-shared memory, spills).  The library is loaded with ctypes and every entry
-point gets its argtypes.  A failed build or load raises: there is no
-fallback.
+nvcc compiles each source with a plain C interface (no PyTorch headers, so
+a build takes seconds) into its own library under `build/monocularsfm_torch/`
+at the root of the checkout; the file name carries a hash of the source,
+so an edited kernel is rebuilt.  A library is built when one of its entry
+points is first called, so a caller pays only for the kernels it runs
+(bundle adjustment builds csrc/schur.cu alone); `build()` builds them all
+at once, one nvcc process per source, all started together.  `build_log`
+keeps what ptxas said of each kernel (registers, shared memory, spills).
+The libraries are loaded with ctypes and every entry point gets its
+argtypes.  A failed build or load raises: there is no fallback.
 """
 
 from __future__ import annotations
@@ -38,12 +40,18 @@ _SIGNATURES = {
     "sfm_blur_vh": ([_P, _P, _P, ctypes.c_longlong, _I, _I, _I, _I, _I, _P], _I),
     "sfm_match_tile": ([_P, _P, _I, _I, _P, _P, _I, _I, _P, _P, _P, _P, _P,
                         _P, _P, _I, _I, _P], _I),
-    "sfm_error_string": ([_I], ctypes.c_char_p),
+    "sfm_schur_product": ([_P] * 12 + [_I] * 4 + [_P], _I),
 }
+# The entry points of each source's library.
+_LIBRARIES = {
+    "blur": ("sfm_blur_v", "sfm_blur_h", "sfm_blur_vh"),
+    "match_tile": ("sfm_match_tile",),
+    "schur": ("sfm_schur_product",),
+}
+_SOURCE_OF = {fn: src for src, fns in _LIBRARIES.items() for fn in fns}
 
-_lib = None
-build_seconds = None  # wall time of the build this process made, if any
-build_log = ""        # the compilers' messages of that build
+build_seconds = None  # wall time of the last build this process made, if any
+build_log = ""        # the compilers' messages of this process's builds
 
 
 def _nvcc() -> str:
@@ -57,25 +65,17 @@ def _nvcc() -> str:
     return cand
 
 
-def _sources() -> list[pathlib.Path]:
-    srcs = sorted(CSRC.glob("*.cu"))
-    if not srcs:
-        raise RuntimeError(f"no CUDA sources under {CSRC}")
-    return srcs
-
-
-def library_path() -> pathlib.Path:
-    h = hashlib.sha256()
-    for s in _sources():
-        h.update(s.name.encode())
-        h.update(s.read_bytes())
+def library_path(name: str) -> pathlib.Path:
+    """Where the library of csrc/<name>.cu is built."""
+    src = CSRC / f"{name}.cu"
+    h = hashlib.sha256(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"libsfm_kernels_{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"libsfm_{name}_{h.hexdigest()[:16]}.so"
 
 
-def _run(cmds) -> str:
+def _run(cmds) -> list[str]:
     """Run the commands together; wait for all, then raise if any failed.
-    Returns their messages."""
+    Returns each one's messages."""
     procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
                               stderr=subprocess.PIPE, text=True)
              for cmd in cmds]
@@ -84,52 +84,67 @@ def _run(cmds) -> str:
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
                                f"{' '.join(cmd)}\n{stdout}\n{stderr}")
-    return "".join(stdout + stderr for stdout, stderr in results)
+    return [stdout + stderr for stdout, stderr in results]
 
 
-def build() -> pathlib.Path:
-    """Compile the kernels unless this exact build exists already."""
+def build(names=None) -> list[pathlib.Path]:
+    """Compile the libraries of csrc/<name>.cu for `names` (default: every
+    source) unless these exact builds exist already; returns their paths.
+    The compilers' messages of each build stay beside its library, in the
+    same name with `.log`."""
     global build_seconds, build_log
-    out = library_path()
-    if out.exists():
-        return out
+    names = list(names or _LIBRARIES)
+    outs = [library_path(n) for n in names]
+    todo = [(n, out, out.with_suffix(f".{os.getpid()}.tmp"))
+            for n, out in zip(names, outs) if not out.exists()]
+    if not todo:
+        return outs
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tag = f"{out.stem}.{os.getpid()}"
     t0 = time.perf_counter()
-    nvcc, srcs = _nvcc(), _sources()
-    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in srcs]
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    nvcc = _nvcc()
     try:
-        log = _run([[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
-                    for src, obj in zip(srcs, objs)])
-        log += _run([[nvcc, "-shared", "-o", str(tmp), *map(str, objs)]])
+        logs = _run([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
+                      str(CSRC / f"{n}.cu")] for n, _, tmp in todo])
+        for (_, out, tmp), log in zip(todo, logs):
+            out.with_suffix(".log").write_text(log)
+            os.replace(tmp, out)
     finally:
-        for obj in objs:
-            obj.unlink(missing_ok=True)
-    os.replace(tmp, out)
+        for _, _, tmp in todo:
+            tmp.unlink(missing_ok=True)
     build_seconds = time.perf_counter() - t0
-    build_log = log
-    return out
+    build_log += "".join(logs)
+    return outs
 
 
-def lib() -> ctypes.CDLL:
-    """The loaded kernel library (built on the first call)."""
-    global _lib
-    if _lib is None:
-        handle = ctypes.CDLL(str(build()))
-        for name, (argtypes, restype) in _SIGNATURES.items():
-            fn = getattr(handle, name)
-            fn.argtypes = argtypes
-            fn.restype = restype
-        _lib = handle
-    return _lib
+class _Kernels:
+    """The entry points, each loaded (its library built) on first use."""
+
+    def __getattr__(self, fn: str):
+        if fn not in _SOURCE_OF:
+            raise AttributeError(fn)
+        name = _SOURCE_OF[fn]
+        handle = ctypes.CDLL(str(build([name])[0]))
+        for entry in _LIBRARIES[name]:
+            f = getattr(handle, entry)
+            f.argtypes, f.restype = _SIGNATURES[entry]
+            setattr(self, entry, f)
+        return getattr(self, fn)
+
+
+_kernels = _Kernels()
+
+
+def lib() -> _Kernels:
+    """The kernels' entry points (each library built on first use)."""
+    return _kernels
 
 
 def check(code: int, what: str) -> None:
     """Raise if a C entry point returned a CUDA error."""
     if code != 0:
-        msg = lib().sfm_error_string(code).decode()
-        raise RuntimeError(f"{what}: CUDA error {code} ({msg})")
+        import torch
+
+        raise RuntimeError(f"{what}: CUDA error {torch.cuda.CudaError(code)}")
 
 
 def stream_ptr(device) -> int:

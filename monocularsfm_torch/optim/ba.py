@@ -28,6 +28,8 @@ Same algorithm as the reference, written as plain tensor code:
   reference's cached-block path).  Its point sums are segment sums over
   point indices, so `point_rows` may come in any order (the reference
   routes unsorted rows to its flash path, which solves the same system).
+  On the card each CG step's product with S is one hand-written kernel
+  pair (ops/schur.py, csrc/schur.cu) that reads the cached W once.
 * The trust-region loop is classic LM radius control as in Ceres.  The
   reference runs it, and CG, as device while-loops; here the host reads
   the LM exit flag once per LM iteration and the CG exit test once per CG
@@ -55,6 +57,13 @@ import numpy as np
 import torch
 
 from monocularsfm_torch.geometry.rotations import angle_axis_to_matrix, skew
+from monocularsfm_torch.ops.schur import (
+    _mv,
+    cams_of,
+    points_of,
+    schur_plan,
+    schur_product,
+)
 from monocularsfm_torch.utils.segment import segment_plan, segment_sum
 from monocularsfm_torch.utils.spans import span
 
@@ -143,12 +152,8 @@ def _inv3x3(a: torch.Tensor) -> torch.Tensor:
 
 # The per-observation blocks are tiny (2x6, 6x3, 3x3) and number up to
 # millions: cuBLAS's batched gemm/gemv runs them at a small fraction of
-# memory bandwidth, so they are products of broadcasts and sums.
-def _mv(M: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """Batched matrix-vector product (..., m, n) x (..., n) -> (..., m)."""
-    return (M * v[..., None, :]).sum(-1)
-
-
+# memory bandwidth, so they are products of broadcasts and sums (`_mv` as
+# well, which the Schur product's plain version shares).
 def _mm(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
     """Batched product of small matrices (..., m, k) x (..., k, n)."""
     return (A[..., :, :, None] * B[..., None, :, :]).sum(-2)
@@ -373,6 +378,8 @@ def _lm_segment(
         obs = weighted.nonzero()[:, 0]                      # (O,)
     cam_o, pt_o = cam_all[obs], pt_all[obs]
     cam_plan, pt_plan = segment_plan(cam_o, C), segment_plan(pt_o, Pn)
+    if solve_mode == "pcg":
+        schur = schur_plan(cam_plan, pt_plan)
     uv_o = prob.obs_uv.reshape(-1, 2)[obs]
     num_res = torch.tensor(float(obs.numel()), device=dev)  # this rank's
     free_cam = (prob.cam_valid & ~prob.cam_const).to(f32)  # (C,)
@@ -571,14 +578,16 @@ def _lm_segment(
             Uinv = torch.linalg.inv_ex(U_d)[0]
 
             def WT_pts(x):     # (C, 6) -> (Pn, 3): per-point sum of W^T x_cam
-                return to_points(_mv(W.transpose(-1, -2), x[cam_o]))
+                return points_of(W, x, schur)
 
             def Wy_cams(y):    # (Pn, 3) -> (C, 6): per-camera sum of W y_p
-                return to_cams(_mv(W, y[pt_o]))
+                return cams_of(W, y, schur)
 
             def S_mul(x):
+                if group is None:
+                    return schur_product(W, Vi, x, schur, U_d)
                 # U_d x is replicated: only the point-sharded term is reduced.
-                return _mv(U_d, x) - psum(Wy_cams(_mv(Vi, WT_pts(x))))[0]
+                return _mv(U_d, x) - psum(schur_product(W, Vi, x, schur))[0]
 
             rhs = g_c - psum(Wy_cams(_mv(Vi, g_p)))[0]
             x = torch.zeros_like(rhs)

@@ -56,3 +56,21 @@ def match_work(valid, pairs, N: int, D: int = 128,
               + 3 * 4.0 * len(pairs) * (N + N_b))
     ops = sum(2.0 * D * valid[a] * valid[b] for a, b in pairs)
     return nbytes, ops
+
+
+def schur_work(n_obs: int, n_points: int, n_cams: int,
+               gathered: bool = False) -> tuple[float, float]:
+    """Bytes and fp32 flops of one product with the Schur complement in its
+    two-pass form (csrc/schur.cu): each observation's W block (72 bytes)
+    and its point, camera and camera-order row (int32), the 6-float
+    payload written and read back (the kernel pads its rows to 8 floats,
+    which is not counted), the order's int32 where the
+    observations are gathered into point order; each point's Vi (36
+    bytes) with observations; each camera's x, U_d, first row and result.
+    Flops: W^T x and W y (36 each), the point and camera sums (9) an
+    observation, Vi z (18) a point, U_d x and the difference (78) a
+    camera."""
+    per_obs = 72 + 12 + 48 + (4 if gathered else 0)
+    nbytes = (per_obs * n_obs + 36.0 * n_points
+              + n_cams * (24 + 144 + 4 + 24) + 4)
+    return float(nbytes), 81.0 * n_obs + 18.0 * n_points + 78.0 * n_cams

@@ -553,3 +553,153 @@ def test_vocab_training_on_the_card_repeats_bit_for_bit(dev):
     a, b = (vocab.train_visual_vocab(desc, num_words=512, iterations=5, device=dev)
             for _ in range(2))
     assert a.device.type == "cuda" and torch.equal(a, b)
+
+
+# -- the Schur product of the PCG path (ops/schur.py, csrc/schur.cu) -------
+
+SCHUR_CASES = ["sorted", "split", "unsorted", "long_point", "big_camera"]
+
+
+def _schur_inputs(case, dev, seed=0):
+    """A product's inputs on the card: tracks of 2 + Poisson(3) observations
+    ("sorted": one row a point), of 2 + Poisson(30) ("split": tracks over
+    several rows, runs past 32), the split ids shuffled ("unsorted"), one
+    track of 700 observations beside short ones ("long_point": past 32 and
+    past the kernel's tile of 256), 12,000 observations in one camera
+    ("big_camera").  In each, camera 0 pinned (its W rows zero, its U_d the
+    identity, as the solver gives them), a quarter of the points without
+    observations (Vi the identity, as the solver gives invalid points) and
+    the last camera empty."""
+    from monocularsfm_torch.ops import schur
+    from monocularsfm_torch.utils.segment import segment_plan
+
+    rng = np.random.default_rng(seed + SCHUR_CASES.index(case))
+    C, P = 40, 8000
+    used = 3 * P // 4
+    lengths = 2 + rng.poisson(30 if case in ("split", "unsorted") else 3, used)
+    if case == "long_point":
+        lengths[used // 3] = 700
+    pt = np.repeat(np.arange(used), lengths)
+    if case == "unsorted":
+        pt = rng.permutation(pt)
+    n = len(pt)
+    cam = rng.integers(0, C - 1, n)
+    if case == "big_camera":
+        cam[rng.permutation(n)[:12000]] = 5
+    W = rng.normal(size=(n, 6, 3)).astype(np.float32)
+    W[cam == 0] = 0.0
+    A = rng.normal(size=(P, 3, 3))
+    Vi = np.linalg.inv(A @ A.transpose(0, 2, 1) + np.eye(3)).astype(np.float32)
+    Vi[used:] = np.eye(3)
+    B = rng.normal(size=(C, 6, 6))
+    U = (B @ B.transpose(0, 2, 1) + 6 * np.eye(6)).astype(np.float32)
+    U[0] = np.eye(6)
+    x = rng.normal(size=(C, 6)).astype(np.float32)
+    t = [torch.from_numpy(a).to(dev) for a in (W, Vi, x, U)]
+    plan = schur.schur_plan(segment_plan(torch.from_numpy(cam).to(dev), C),
+                            segment_plan(torch.from_numpy(pt).to(dev), P))
+    return (*t, plan, (int(np.bincount(pt).max()), int(np.bincount(cam).max())))
+
+
+def _schur_bounds(W, Vi, x, U, plan, longest):
+    """The float64 product and two float32 bounds.  A float32 sum of terms
+    in any order lies within gamma_k * (the sum of their absolute values)
+    of the exact sum, k the roundings along its deepest chain (Higham), and
+    so does the whole product, with the absolute values carried through
+    (`mag`).  The kernel's chains: a point's observations one after another,
+    a camera's rows in 256 strided runs, and 32 more for the 3-, 6- and
+    warp-sized chains (W^T x, Vi z, W y, the shuffle tree, the warps' sums,
+    U_d x).  The plain version sums in another order: against it the bound
+    is the kernel's plus that of a sum in any order."""
+    from monocularsfm_torch.ops import schur
+    from monocularsfm_torch.utils.segment import segment_plan
+
+    f64 = [None if t is None else t.double().cpu() for t in (W, Vi, x, U)]
+    C, P = x.shape[0], Vi.shape[0]
+    host = schur.schur_plan(segment_plan(plan.cam_plan.ids.cpu(), C),
+                            segment_plan(plan.pt_plan.ids.cpu(), P))
+    exact = schur.schur_product_plain(*f64[:3], host, f64[3]).to(x.device)
+    mag = schur.schur_product_plain(W.abs(), Vi.abs(), x.abs(), plan)
+    if U is not None:
+        mag = mag + schur._mv(U.abs(), x.abs())
+    u = np.finfo(np.float32).eps / 2
+    pt_len, cam_len = longest
+    k_kernel = pt_len + -(-cam_len // 256) + 32
+    k_any = pt_len + cam_len + 32
+    return exact, k_kernel * u * mag, (k_kernel + k_any) * u * mag
+
+
+@pytest.mark.parametrize("case", SCHUR_CASES)
+def test_schur_kernel_matches_plain(dev, case):
+    """The kernel pair against the float64 product and the plain product
+    on the card, with U_d fused and without (a group's sum), within the
+    float32 bounds `_schur_bounds` states; two calls on one input equal
+    bit for bit; one launch of each pass a product."""
+    from monocularsfm_torch.ops import schur
+
+    W, Vi, x, U, plan, longest = _schur_inputs(case, dev)
+    assert (plan.order is None) == (case != "unsorted")
+    for U_d in (U, None):
+        schur.reset_launches()
+        out = schur.schur_product(W, Vi, x, plan, U_d)
+        torch.cuda.synchronize()
+        assert schur.LAUNCHES == {"schur_points": 1, "schur_cams": 1}
+        assert out.shape == (x.shape[0], 6) and out.device == x.device
+        exact, tol, tol_plain = _schur_bounds(W, Vi, x, U_d, plan, longest)
+        err = (out.double() - exact).abs()
+        assert (err <= tol).all(), (case, err.max().item(), (err / tol).max().item())
+        plain = schur.schur_product_plain(W, Vi, x, plan, U_d)
+        assert ((out - plain).abs() <= tol_plain).all(), case
+        assert torch.equal(out, schur.schur_product(W, Vi, x, plan, U_d))
+        if U_d is None:
+            assert torch.equal(out[-1], torch.zeros(6, device=dev))   # empty camera
+        else:
+            assert torch.equal(out[0], x[0])                          # pinned
+
+
+def test_pcg_bundle_adjust_goes_through_the_schur_kernel(dev):
+    """A PCG solve on the card launches each pass once a CG step, on
+    sorted and on shuffled split rows; the dense solve launches none."""
+    from monocularsfm_torch.ops import schur
+    from monocularsfm_torch.optim import bundle_adjust
+
+    prob = _ring(split=True).to(dev)
+    perm = torch.randperm(prob.obs_cam.shape[0],
+                          generator=torch.Generator().manual_seed(1)).to(dev)
+    shuffled = type(prob)(**dict(prob.tensors(), **{
+        f: getattr(prob, f)[perm]
+        for f in ("obs_cam", "obs_uv", "obs_valid", "point_rows")}))
+    for p in (prob, shuffled):
+        schur.reset_launches()
+        out = bundle_adjust(p, max_iterations=3, solve_mode="pcg", pcg_iters=20)
+        assert out["cg_steps"] > 0
+        assert schur.LAUNCHES == {"schur_points": out["cg_steps"],
+                                  "schur_cams": out["cg_steps"]}
+    schur.reset_launches()
+    bundle_adjust(_ring(split=False).to(dev), max_iterations=2)
+    assert schur.LAUNCHES == {"schur_points": 0, "schur_cams": 0}
+
+
+def test_schur_product_rejects_what_the_kernel_does_not_take(dev):
+    from monocularsfm_torch.ops import schur
+    from monocularsfm_torch.utils.segment import segment_plan
+
+    W, Vi, x, U, plan, _ = _schur_inputs("sorted", dev)
+    bad = {
+        "W on the CPU": dict(W=W.cpu()),
+        "float64 W": dict(W=W.double()),
+        "W of the wrong shape": dict(W=W[1:]),
+        "Vi of the wrong shape": dict(Vi=Vi[:-1]),
+        "non-contiguous W": dict(W=W.transpose(1, 2).contiguous().transpose(1, 2)),
+        "unaligned x": dict(x=torch.empty(x.numel() + 1, device=dev)[1:].view_as(x)),
+        "U_d of the wrong shape": dict(U_d=U[:, :3]),
+    }
+    for what, kw in bad.items():
+        args = {**dict(W=W, Vi=Vi, x=x, plan=plan, U_d=U), **kw}
+        with pytest.raises(ValueError):
+            schur.schur_product(**args)
+            pytest.fail(what)
+    cpu_plan = schur.schur_plan(segment_plan(plan.cam_plan.ids.cpu(), x.shape[0]),
+                                segment_plan(plan.pt_plan.ids.cpu(), Vi.shape[0]))
+    with pytest.raises(ValueError, match="fixed-order"):
+        schur.schur_product(W, Vi, x, cpu_plan, U)

@@ -60,3 +60,14 @@ def test_fused_blur_bound(C, T, bound_ms, by):
     assert nbytes == 4 * px * (1 + C) + 4 * C * T and flops == 2 * px * C * 2 * T
     ms, got = roofline.bound(nbytes, flops, "fp32")
     assert got == by and ms == pytest.approx(bound_ms, rel=1e-4)
+
+
+@pytest.mark.parametrize("gathered,bound_ms", [(False, 0.112745), (True, 0.115981)])
+def test_schur_bound_at_the_neu_bundle_is_set_by_bytes(gathered, bound_ms):
+    """The global bundle of neu.global-ba: 2,710,444 observations of 542,084
+    points in 2,048 camera slots; 132 bytes an observation (136 where the
+    observations are gathered into point order)."""
+    nbytes, flops = roofline.schur_work(2_710_444, 542_084, 2048, gathered)
+    assert nbytes == (132 + 4 * gathered) * 2_710_444 + 36 * 542_084 + 196 * 2048 + 4
+    ms, by = roofline.bound(nbytes, flops, "fp32")
+    assert by == "bytes" and ms == pytest.approx(bound_ms, rel=1e-5)
