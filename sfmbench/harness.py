@@ -117,11 +117,12 @@ def card_line() -> str:
 
 @dataclasses.dataclass
 class MetricCtx:
-    """What a per-layer reader may read: the traced window and the units'
-    records."""
+    """What a per-layer reader may read: the traced window, the units'
+    records and the program's spans."""
     trace: object        # lib.trace.TraceData
     records: list        # one dict per unit of the window
     window_s: float
+    spans: object = None  # lib.spans.SpanData: the window's spans and launches
 
 
 @dataclasses.dataclass
@@ -162,7 +163,7 @@ def execute(cell_name: str, seed: int, seconds: float, trace: bool,
     log(f"[sfmbench] setup {setup_s:.3f}s "
         f"{json.dumps(state.info['setup_parts'])}")
 
-    records, tdata = _window(driver, state, seconds, trace, device)
+    records, tdata = _window(driver, state, seconds, trace, device, log)
     window_s = (tdata.window_s if tdata is not None
                 else records[-1]["t1"] - records[0]["t0"])
     peak = (torch.cuda.max_memory_allocated(device)
@@ -170,7 +171,7 @@ def execute(cell_name: str, seed: int, seconds: float, trace: bool,
     e2e = driver.end_to_end(records, window_s)
     metrics = {}
     if trace:
-        ctx = MetricCtx(tdata, records, window_s)
+        ctx = MetricCtx(tdata, records, window_s, tdata.spans)
         for m in cell.per_layer:
             value = metric_reader(m["name"]).read(ctx)
             if value is not None:
@@ -199,7 +200,7 @@ def execute(cell_name: str, seed: int, seconds: float, trace: bool,
     return Outcome(result, checks)
 
 
-def _window(driver, state, seconds, trace, device):
+def _window(driver, state, seconds, trace, device, log=print):
     """Whole units back to back for `seconds`; under the profiler and the
     host sampler with `trace`.  Returns (records, TraceData or None)."""
     import torch
@@ -230,4 +231,10 @@ def _window(driver, state, seconds, trace, device):
     with HostSampler() as sampler, profile(activities=acts) as prof:
         with record_function(HARNESS_SPAN):
             run()
-    return records, read_profile(prof, sampler.samples)
+    t0 = time.perf_counter()
+    tdata = read_profile(prof, sampler.samples)
+    log(f"[sfmbench] profiler stopped {t0 - records[-1]['t1']:.3f}s after "
+        f"the window, trace read in {time.perf_counter() - t0:.3f}s: "
+        f"{len(tdata.device)} device operations, {len(tdata.spans.spans)} "
+        f"spans, {len(tdata.spans.launches)} launch calls")
+    return records, tdata

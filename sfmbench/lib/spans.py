@@ -1,10 +1,12 @@
 """The program's spans and the host's kernel launches in a torch.profiler
-trace, and the numbers of bundle adjustment's phases read from them.
+trace, and the numbers of bundle adjustment's and the MapBuilder's phases
+read from them.
 
 The port marks its phases and its blocking device-to-host reads with user
 annotations of torch.profiler (`monocularsfm_torch/utils/spans.py`): `ba.solve`,
-`ba.prepare`, `ba.linearize`, `ba.cg_step`, `ba.step_eval`, and a leaf
-`host_read.<site>` around each read.  They lie on the profiler's clock, as
+`ba.prepare`, `ba.linearize`, `ba.cg_step`, `ba.step_eval`, a leaf
+`host_read.<site>` around each read, and `map_builder.<phase>` around each
+phase of a reconstruction.  They lie on the profiler's clock, as
 the card's operations of `trace.read_profile` and the runtime's launch calls
 do, so the three line up.
 
@@ -51,14 +53,22 @@ def read_spans(prof, window: tuple[int, int]) -> SpanData:
 
     spans, launches = [], []
     for ev in prof.profiler.kineto_results.events():
-        if ev.device_type() != DeviceType.CPU:
-            continue
-        name = ev.name()
-        if name.startswith(LAUNCH_PREFIXES):
-            launches.append(_ns(ev, "start"))
-        elif ev.is_user_annotation() and name != HARNESS_SPAN:
-            s = _ns(ev, "start")
-            spans.append((name, s, s + int(_ns(ev, "duration"))))
+        if ev.device_type() == DeviceType.CPU:
+            add_host_event(ev, ev.name(), spans, launches)
+    return span_data(window, spans, launches)
+
+
+def add_host_event(ev, name: str, spans: list, launches: list) -> None:
+    """File one host event of a profile: a launch call's start time, or a
+    user annotation of the program as (name, start, end)."""
+    if name.startswith(LAUNCH_PREFIXES):
+        launches.append(_ns(ev, "start"))
+    elif name != HARNESS_SPAN and ev.is_user_annotation():
+        s = _ns(ev, "start")
+        spans.append((name, s, s + int(_ns(ev, "duration"))))
+
+
+def span_data(window: tuple[int, int], spans: list, launches: list) -> SpanData:
     spans.sort(key=lambda x: (x[1], -x[2]))
     return SpanData(window, spans, sorted(launches))
 
@@ -78,6 +88,23 @@ def mean_ms(sd: SpanData, name: str) -> float | None:
     if not spans:
         return None
     return 1e-6 * sum(e - s for s, e in spans) / len(spans)
+
+
+def total_ms(sd: SpanData, name: str) -> float | None:
+    """Summed length of the spans called `name`, in ms."""
+    spans = sd.named(name)
+    if not spans:
+        return None
+    return 1e-6 * sum(e - s for s, e in spans)
+
+
+def ms_per_build(sd: SpanData, name: str) -> float | None:
+    """`total_ms` of `name` over the number of builds, the
+    `map_builder.total` spans of the window."""
+    total, builds = total_ms(sd, name), len(sd.named("map_builder.total"))
+    if total is None or not builds:
+        return None
+    return total / builds
 
 
 def prepare_ms_per_solve(sd: SpanData) -> float | None:

@@ -61,6 +61,13 @@ class TraceData:
     window: tuple[int, int]                    # ns
     device: list[tuple[str, int, int]]         # (name, start ns, end ns)
     samples: list[tuple[int, str]]
+    spans: object = None                       # lib.spans.SpanData
+
+    def idle_pct(self) -> float | None:
+        """Share of the window in which no operation ran on the card, in %."""
+        if self.window_s <= 0:
+            return None
+        return 100.0 * (1.0 - self.busy_s / self.window_s)
 
     @property
     def window_s(self) -> float:
@@ -145,17 +152,23 @@ def _ns(ev, what: str) -> int:
 
 
 def read_profile(prof, samples) -> TraceData:
-    """Device operations and the harness's window span from a finished
-    torch.profiler.profile."""
+    """Device operations, the harness's window span and, in the same pass,
+    the program's spans and launch calls (`spans.add_host_event`) from a
+    finished torch.profiler.profile."""
     from torch.autograd import DeviceType
 
+    from sfmbench.lib.spans import add_host_event, span_data
+
     window = None
-    device = []
+    device, spans, launches = [], [], []
     for ev in prof.profiler.kineto_results.events():
         if ev.device_type() == DeviceType.CPU:
-            if ev.name() == HARNESS_SPAN:
+            name = ev.name()
+            if name == HARNESS_SPAN:
                 s = _ns(ev, "start")
                 window = (s, s + int(_ns(ev, "duration")))
+            else:
+                add_host_event(ev, name, spans, launches)
             continue
         # The card's copy of a host annotation spans the work under it and
         # is no operation of its own.
@@ -166,4 +179,4 @@ def read_profile(prof, samples) -> TraceData:
         device.append((ev.name(), s, s + int(_ns(ev, "duration"))))
     if window is None:
         raise RuntimeError(f"the profile holds no {HARNESS_SPAN!r} span")
-    return TraceData(window, device, samples)
+    return TraceData(window, device, samples, span_data(window, spans, launches))

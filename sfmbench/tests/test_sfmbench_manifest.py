@@ -110,6 +110,6 @@ def test_a_cell_added_as_files_alone_loads(tmp_path, monkeypatch):
     assert cell.config["name"] == "neu" and cell.traffic["ba"]["cameras"] == 60
     assert {m["name"] for m in cell.end_to_end} == {"global_ba_s", "setup_s"}
     assert {m["name"] for m in cell.per_layer} == {
-        "device_idle_pct.ba", "ba.ms_per_cg_step", "ba.lm_iters_per_solve"}
-    assert pathlib.Path(harness.metric_reader("ba.ms_per_cg_step").__file__
+        "device_idle_pct.ba", "ba.cg_step_ms", "ba.lm_iters_per_solve"}
+    assert pathlib.Path(harness.metric_reader("ba.cg_step_ms").__file__
                         ).parent == bench / "metrics"

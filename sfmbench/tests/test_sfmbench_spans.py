@@ -113,3 +113,48 @@ def test_profile_readers_keep_annotations_off_the_card():
     assert sd.spans == [("ba.cg_step", 10 * MS, 15 * MS)]
     assert sd.launches == [int(11.5 * MS), 12 * MS]
     assert S.launches_per_cg_step(sd) == 2.0
+
+
+def _recorded():
+    """A traced window of the small neu.global-ba run on the card, as
+    profiler events, with what the parent commit's `read_profile` and
+    `device_idle_pct.ba` reader read from it."""
+    import gzip
+    import json
+    import pathlib
+
+    path = pathlib.Path(__file__).parent / "data" / "neu_small_card_trace.json.gz"
+    with gzip.open(path, "rt") as f:
+        d = json.load(f)
+    def event(i, host, s, dur, user):
+        return types.SimpleNamespace(
+            name=lambda: d["names"][i], start_ns=lambda: s,
+            duration_ns=lambda: dur, is_user_annotation=lambda: bool(user),
+            device_type=lambda: DeviceType.CPU if host else DeviceType.CUDA)
+
+    events = [event(*e) for e in d["events"]]
+    prof = types.SimpleNamespace(profiler=types.SimpleNamespace(
+        kineto_results=types.SimpleNamespace(events=lambda: events)))
+    return prof, [tuple(s) for s in d["samples"]], d["parent_readings"]
+
+
+def test_recorded_trace_reads_as_before_the_spans():
+    from sfmbench import harness
+
+    prof, samples, before = _recorded()
+    trace = read_profile(prof, samples)
+    assert list(trace.window) == before["window"]
+    assert len(trace.device) == before["device"]
+    assert trace.busy_s == before["busy_s"]
+    assert trace.top_device_ops() == before["top_device_ops"]
+    assert [list(g) for g in trace.idle_gaps()] == before["idle_gaps"]
+    ctx = harness.MetricCtx(trace, [], trace.window_s, trace.spans)
+    assert (harness.metric_reader("device_idle_pct.ba").read(ctx)
+            == before["device_idle_pct.ba"])
+    # The same pass found the program's spans and launches, as the tool's
+    # reader does.
+    sd = S.read_spans(prof, trace.window)
+    assert trace.spans == sd and sd.named("ba.cg_step") and sd.launches
+    steps = sd.named("ba.cg_step")
+    assert harness.metric_reader("ba.cg_step_ms").read(ctx) == pytest.approx(
+        1e-6 * sum(e - s for s, e in steps) / len(steps))
