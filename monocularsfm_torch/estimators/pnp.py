@@ -20,9 +20,11 @@ solvers, each batched over the hypothesis axis, behind one RANSAC harness:
 The DLT solvers keep the reference's unresolved eigenvector sign: a sample
 whose null vector comes out negated gives a wrong pose that loses the
 scoring pass, so two eigensolvers may pick different winners.  The winner
-is polished by Gauss-Newton on its inliers; the 2N x 6 Jacobian is taken by
-forward-mode autodiff (torch.func.jacfwd), as the reference takes it with
-jax.jacfwd.
+is polished by Gauss-Newton on its inliers.  The reference takes the 2N x 6
+Jacobian with jax.jacfwd; here it is written out by the chain rule through
+Rodrigues' formula as `angle_axis_to_matrix` evaluates it, because torch's
+forward-mode autodiff imports torch._dynamo at its first use, about 800
+modules and 2-10 s on the first registration of every process.
 """
 
 from __future__ import annotations
@@ -37,6 +39,7 @@ from monocularsfm_torch.estimators.ransac import (
 from monocularsfm_torch.geometry.rotations import (
     angle_axis_to_matrix,
     matrix_to_angle_axis,
+    skew,
 )
 from monocularsfm_torch.utils.linalg import eigh, eigh_vectors, svd
 from monocularsfm_torch.utils.precision import mm
@@ -310,6 +313,47 @@ def _reproj_err_px(K, R, t, X, uv):
     return torch.where(behind, 1e18, err2)
 
 
+def _polish_residuals(params, K, X, uv, w):
+    """The weighted pixel residuals (2N,) of the pose `params` (angle-axis,
+    t) and their Jacobian (2N, 6), rows (u, v) a point.  The Jacobian is
+    the derivative of the residuals as computed here, `angle_axis_to_matrix`
+    with its small-angle branch and the clamp of z included."""
+    a = params[:3]
+    theta2 = (a * a).sum()
+    theta = torch.sqrt(theta2 + 1e-12)
+    small = theta2 < 1e-8
+    sin, cos = torch.sin(theta), torch.cos(theta)
+    # sinc = sin(theta) / theta and cosc = (1 - cos(theta)) / theta2, and
+    # their derivatives with respect to theta2.
+    sinc = torch.where(small, 1.0 - theta2 / 6.0, sin / theta)
+    cosc = torch.where(small, 0.5 - theta2 / 24.0, (1.0 - cos) / theta2)
+    dsinc = torch.where(small, -1.0 / 6.0,
+                        (theta * cos - sin) / (2.0 * theta ** 3))
+    dcosc = torch.where(small, -1.0 / 24.0,
+                        sin / (2.0 * theta * theta2) - (1.0 - cos) / theta2 ** 2)
+    Ka = skew(a)
+    xc = X @ angle_axis_to_matrix(a[None])[0].T + params[3:]
+    # d(R X) / da: R X = X + sinc a x X + cosc a x (a x X).
+    aX = torch.linalg.cross(a.expand_as(X), X)
+    aaX = torch.linalg.cross(a.expand_as(X), aX)
+    sX = skew(X)
+    dRX = (2.0 * a * (dsinc * aX[:, :, None] + dcosc * aaX[:, :, None])
+           - sinc * sX - cosc * (skew(aX) + Ka @ sX))             # (N, 3, 3)
+    clamped = xc[:, 2].abs() < 1e-6
+    z = torch.where(clamped, 1e-6, xc[:, 2])
+    fx, fy = K[0, 0], K[1, 1]
+    r = torch.stack([fx * xc[:, 0] / z + K[0, 2] - uv[:, 0],
+                     fy * xc[:, 1] / z + K[1, 2] - uv[:, 1]], -1) * w[:, None]
+    # d r / d xc, (N, 2, 3); a clamped z is a constant.
+    dz = torch.where(clamped, 0.0, -1.0 / (z * z))
+    zero = torch.zeros_like(z)
+    dr = torch.stack([torch.stack([fx / z, zero, fx * xc[:, 0] * dz], -1),
+                      torch.stack([zero, fy / z, fy * xc[:, 1] * dz], -1)], -2)
+    dr = dr * w[:, None, None]
+    J = torch.cat([dr @ dRX, dr], -1)
+    return r.reshape(-1), J.reshape(-1, 6)
+
+
 def estimate_pnp_ransac(u: torch.Tensor, K: torch.Tensor, X: torch.Tensor,
                         uv: torch.Tensor, mask: torch.Tensor,
                         threshold_px: float = 4.0, refine_iters: int = 10,
@@ -370,24 +414,12 @@ def estimate_pnp_ransac(u: torch.Tensor, K: torch.Tensor, X: torch.Tensor,
     del err2
     R_best, t_best = R[best], t[best]
 
-    def residuals(params, w):
-        # (1, 3) angle-axis: under jacfwd a 0-dim intermediate would promote
-        # python-float arithmetic to float64.
-        Rp = angle_axis_to_matrix(params[None, :3])[0]
-        xc = X @ Rp.T + params[3:]
-        z = torch.where(xc[:, 2].abs() < 1e-6, 1e-6, xc[:, 2])
-        ru = fx * xc[:, 0] / z + K[0, 2] - uv[:, 0]
-        rv = fy * xc[:, 1] / z + K[1, 2] - uv[:, 1]
-        return (torch.stack([ru, rv], -1) * w[:, None]).reshape(-1)
-
-    jac = torch.func.jacfwd(residuals)
     eye6 = torch.eye(6, dtype=K.dtype, device=K.device)
     params = torch.cat([matrix_to_angle_axis(R_best), t_best])
     for _ in range(refine_iters):
         w = ((_reproj_err_px(K, angle_axis_to_matrix(params[:3]), params[3:],
                              X, uv) <= thr2) & mask).float()
-        J = jac(params, w)                                    # (2N, 6)
-        r = residuals(params, w)
+        r, J = _polish_residuals(params, K, X, uv, w)         # (2N,), (2N, 6)
         JtJ = J.T @ J
         Jtr = J.T @ r
         damp = 1e-6 * torch.trace(JtJ) / 6.0

@@ -1,7 +1,13 @@
 """COLMAP text model writer/reader (cameras.txt, images.txt, points3D.txt).
 
 The port of monocularsfm_tpu/io/colmap.py; the quaternion conversions run
-in float32 on the CPU, as the reference's do.
+in float32 on the CPU, as the reference's do.  A model of a few hundred
+views holds millions of keypoints, so their lines are written and parsed
+by `native/colmap_text.cpp`, and the points' errors are computed for all
+points at once.  The numbers read back as the reference's do: each float
+is written in the shortest form that reads back to the same double (`5`
+where the reference's repr() writes `5.0`), and ERROR, a mean summed in
+another order, may differ in its last digits.
 
 Reference parity: Map::WriteCOLMAP (src/Reconstruction/Map.cpp:1322-1446)
 emits the same three files so downstream COLMAP-compatible tooling (and the
@@ -17,6 +23,8 @@ Format (standard COLMAP sparse text model):
 
 from __future__ import annotations
 
+import ctypes
+import itertools
 import pathlib
 
 import numpy as np
@@ -28,8 +36,89 @@ from monocularsfm_torch.geometry.rotations import (
 )
 
 
+# Bytes at most of a keypoint's `X Y POINT3D_ID`, of a point's line less
+# its track, and of a pair of its track (native/colmap_text.cpp).
+_POINT2D_BYTES, _POINT3D_BYTES, _TRACK_PAIR_BYTES = 72, 192, 42
+
+
 def _f32(a) -> torch.Tensor:
     return torch.as_tensor(np.asarray(a, np.float32))
+
+
+def _points2d_line(uv: np.ndarray, point3D: np.ndarray) -> bytes:
+    """`X Y POINT3D_ID` of every keypoint, joined by spaces: each coordinate
+    in its shortest round-trip form, each id or -1."""
+    from monocularsfm_torch import native
+
+    uv = np.ascontiguousarray(uv, np.float64)
+    ids = np.ascontiguousarray(point3D, np.int64)
+    buf = ctypes.create_string_buffer(_POINT2D_BYTES * len(uv) + 1)
+    n = native.get_text_lib().colmap_points2d_line(uv, ids, len(uv), buf)
+    return buf.raw[:n]
+
+
+def _points3d_lines(map_obj) -> bytes:
+    """The lines of points3D.txt, `POINT3D_ID X Y Z R G B ERROR TRACK[]`:
+    the floats in their shortest round-trip form, the colour as RGB
+    integers, ERROR the point's mean reprojection error over its track."""
+    from monocularsfm_torch import native
+
+    pids = np.asarray(map_obj.point_ids(), np.int64)
+    tracks = [map_obj.track(int(p)) for p in pids]
+    lens = np.fromiter(map(len, tracks), np.int64, len(tracks))
+    pairs = np.fromiter(itertools.chain.from_iterable(
+        itertools.chain.from_iterable(tracks)), np.int64, 2 * int(lens.sum()))
+    xyz = np.array([map_obj.xyz(int(p)) for p in pids], np.float64).reshape(-1, 3)
+    # Stored colors are BGR (OpenCV sampling); COLMAP wants RGB.
+    bgr = np.array([map_obj.color(int(p)) for p in pids]).reshape(-1, 3)
+    rgb = np.ascontiguousarray(bgr[:, ::-1].astype(np.int64))
+    err = _mean_track_errors(map_obj, pairs.reshape(-1, 2), lens, xyz)
+    offsets = np.concatenate([[0], np.cumsum(lens)])
+    buf = ctypes.create_string_buffer(
+        _POINT3D_BYTES * len(pids) + _TRACK_PAIR_BYTES * len(pairs) // 2 + 1)
+    n = native.get_text_lib().colmap_points3d_lines(
+        pids, xyz, rgb, err, offsets, pairs, len(pids), buf)
+    return buf.raw[:n]
+
+
+def _numbers(text: bytes) -> tuple[np.ndarray, np.ndarray]:
+    """The numbers of each data line of `text` (blank and '#' lines
+    skipped), as float() reads them: (all of them, each line's count)."""
+    from monocularsfm_torch import native
+
+    out = np.empty(len(text) // 2 + 1)
+    counts = np.empty(text.count(b"\n") + 1, np.int64)
+    lines = ctypes.c_int64(0)
+    n = native.get_text_lib().colmap_parse_numbers(
+        text, len(text), out, len(out), counts, len(counts), ctypes.byref(lines))
+    if n < 0:
+        raise ValueError(f"not a number at byte {-1 - n}: "
+                         f"{text[-1 - n:-1 - n + 40]!r}")
+    return out[:n], counts[:lines.value]
+
+
+def _mean_track_errors(map_obj, obs: np.ndarray, lens: np.ndarray,
+                       xyz: np.ndarray) -> np.ndarray:
+    """Each point's mean reprojection error over its track, as
+    `Map.reproj_errors_of_track(pid).mean()` computes it, for all points at
+    once: `obs` holds the (image id, keypoint) pairs of the tracks, `lens`
+    their lengths and `xyz` the points."""
+    images, row = np.unique(obs[:, 0], return_inverse=True)
+    ims = [map_obj.images[int(i)] for i in images]
+    R = np.array([im.R for im in ims], np.float64).reshape(-1, 3, 3)[row]
+    t = np.array([im.t for im in ims], np.float64).reshape(-1, 3)[row]
+    start = np.cumsum([0] + [len(im.uv) for im in ims])
+    uv_all = (np.concatenate([im.uv for im in ims]) if ims
+              else np.zeros((0, 2), np.float32))
+    uv = uv_all[start[row] + obs[:, 1]].astype(np.float64)
+    owner = np.repeat(np.arange(len(lens)), lens)
+    xc = np.einsum("oij,oj->oi", R, xyz[owner]) + t
+    z = np.where(np.abs(xc[:, 2:3]) < 1e-9, 1e-9, xc[:, 2:3])
+    K = map_obj.K
+    proj = xc[:, :2] / z * [K[0, 0], K[1, 1]] + [K[0, 2], K[1, 2]]
+    err = np.linalg.norm(proj - uv, axis=1)
+    with np.errstate(invalid="ignore", divide="ignore"):
+        return np.bincount(owner, weights=err, minlength=len(lens)) / lens
 
 
 def write_colmap(map_obj, out_dir, width: int = 0, height: int = 0):
@@ -46,45 +135,29 @@ def write_colmap(map_obj, out_dir, width: int = 0, height: int = 0):
             f"{K[0,0]} {K[1,1]} {K[0,2]} {K[1,2]}\n"
         )
 
-    with open(out / "images.txt", "w") as f:
-        f.write("# Image list with two lines of data per image:\n")
-        f.write("#   IMAGE_ID, QW, QX, QY, QZ, TX, TY, TZ, CAMERA_ID, NAME\n")
-        f.write("#   POINTS2D[] as (X, Y, POINT3D_ID)\n")
-        for image_id in sorted(map_obj.registered_ids):
+    ids = sorted(map_obj.registered_ids)
+    quats = matrix_to_quaternion(
+        _f32([map_obj.images[i].R for i in ids]).reshape(-1, 3, 3)).numpy()
+    with open(out / "images.txt", "wb") as f:
+        f.write(b"# Image list with two lines of data per image:\n")
+        f.write(b"#   IMAGE_ID, QW, QX, QY, QZ, TX, TY, TZ, CAMERA_ID, NAME\n")
+        f.write(b"#   POINTS2D[] as (X, Y, POINT3D_ID)\n")
+        for image_id, q in zip(ids, quats):
             im = map_obj.images[image_id]
-            q = matrix_to_quaternion(_f32(im.R)).numpy()
             t = im.t
             f.write(
                 f"{image_id} {q[0]} {q[1]} {q[2]} {q[3]} "
-                f"{t[0]} {t[1]} {t[2]} 1 {im.name}\n"
+                f"{t[0]} {t[1]} {t[2]} 1 {im.name}\n".encode()
             )
-            parts = []
-            for k in range(len(im.uv)):
-                pid = int(im.point3D[k])
-                parts.append(
-                    f"{im.uv[k,0]} {im.uv[k,1]} {pid if pid >= 0 else -1}"
-                )
-            f.write(" ".join(parts) + "\n")
+            f.write(_points2d_line(im.uv, im.point3D) + b"\n")
 
-    with open(out / "points3D.txt", "w") as f:
-        f.write("# 3D point list with one line of data per point:\n")
+    with open(out / "points3D.txt", "wb") as f:
+        f.write(b"# 3D point list with one line of data per point:\n")
         f.write(
-            "#   POINT3D_ID, X, Y, Z, R, G, B, ERROR, "
-            "TRACK[] as (IMAGE_ID, POINT2D_IDX)\n"
+            b"#   POINT3D_ID, X, Y, Z, R, G, B, ERROR, "
+            b"TRACK[] as (IMAGE_ID, POINT2D_IDX)\n"
         )
-        for pid in map_obj.point_ids():
-            pid = int(pid)
-            X = map_obj.xyz(pid)
-            bgr = map_obj.color(pid)
-            err = float(map_obj.reproj_errors_of_track(pid).mean())
-            track = " ".join(
-                f"{img} {kpt}" for img, kpt in map_obj.track(pid)
-            )
-            # Stored colors are BGR (OpenCV sampling); COLMAP wants RGB.
-            f.write(
-                f"{pid} {X[0]} {X[1]} {X[2]} "
-                f"{int(bgr[2])} {int(bgr[1])} {int(bgr[0])} {err} {track}\n"
-            )
+        f.write(_points3d_lines(map_obj))
 
 
 def read_colmap(model_dir):
@@ -108,44 +181,65 @@ def read_colmap(model_dir):
             "params": np.array([float(x) for x in parts[4:]]),
         }
 
+    pts = read_colmap_points(model_dir)
+    errors, ints = pts["error"].tolist(), pts["track"].ravel().tolist()
+    lens, ends = pts["lens"].tolist(), np.cumsum(2 * pts["lens"]).tolist()
+    points = {}
+    for k, (pid, n, end) in enumerate(zip(pts["ids"].tolist(), lens, ends)):
+        track = ints[end - 2 * n:end]
+        points[pid] = {
+            "xyz": pts["xyz"][k],
+            "rgb": pts["rgb"][k],
+            "error": errors[k],
+            "track": list(zip(track[0::2], track[1::2])),
+        }
+    return {"cameras": cameras, "images": read_colmap_images(model_dir),
+            "points": points}
+
+
+def read_colmap_images(model_dir) -> dict:
+    """The `images` of `read_colmap`: {image_id: dict(q, R, t, camera_id,
+    name, uv, point3D)}."""
     images = {}
-    lines = list(_data_lines(model_dir / "images.txt"))
+    lines = [ln for ln in (pathlib.Path(model_dir) / "images.txt").read_bytes()
+             .splitlines() if ln.strip() and not ln.lstrip().startswith(b"#")]
     for i in range(0, len(lines), 2):
-        parts = lines[i].split()
+        parts = lines[i].decode().split()
         image_id = int(parts[0])
         q = np.array([float(x) for x in parts[1:5]])
         t = np.array([float(x) for x in parts[5:8]])
-        name = parts[9]
-        obs = lines[i + 1].split()
-        uv = []
-        p3d = []
-        for j in range(0, len(obs), 3):
-            uv.append((float(obs[j]), float(obs[j + 1])))
-            p3d.append(int(obs[j + 2]))
+        obs = _numbers(lines[i + 1])[0].reshape(-1, 3)
         images[image_id] = {
             "q": q,
             "R": quaternion_to_matrix(_f32(q)).numpy(),
             "t": t,
             "camera_id": int(parts[8]),
-            "name": name,
-            "uv": np.array(uv) if uv else np.zeros((0, 2)),
-            "point3D": np.array(p3d, np.int64) if p3d else np.zeros(0, np.int64),
+            "name": parts[9],
+            "uv": obs[:, :2].copy(),
+            "point3D": obs[:, 2].astype(np.int64),
         }
+    return images
 
-    points = {}
-    for line in _data_lines(model_dir / "points3D.txt"):
-        parts = line.split()
-        pid = int(parts[0])
-        track = [
-            (int(parts[j]), int(parts[j + 1])) for j in range(8, len(parts), 2)
-        ]
-        points[pid] = {
-            "xyz": np.array([float(x) for x in parts[1:4]]),
-            "rgb": np.array([int(x) for x in parts[4:7]], np.uint8),
-            "error": float(parts[7]),
-            "track": track,
-        }
-    return {"cameras": cameras, "images": images, "points": points}
+
+def read_colmap_points(model_dir) -> dict:
+    """The points of a COLMAP text model as arrays, in the file's order:
+    ids (P,), xyz (P, 3), rgb (P, 3) uint8, error (P,), lens (P,) the
+    track lengths, and track (sum of lens, 2) the (image id, keypoint)
+    pairs of every track, one after the other."""
+    flat, counts = _numbers((pathlib.Path(model_dir) / "points3D.txt").read_bytes())
+    if np.any(counts < 8) or np.any(counts % 2):
+        raise ValueError("a points3D.txt line is not ID X Y Z R G B ERROR "
+                         "and (IMAGE_ID, POINT2D_IDX) pairs")
+    starts = np.cumsum(counts) - counts
+    head = starts[:, None] + np.arange(8)
+    in_track = np.ones(len(flat), bool)
+    in_track[head.ravel()] = False
+    return {"ids": flat[starts].astype(np.int64),
+            "xyz": flat[head[:, 1:4]],
+            "rgb": flat[head[:, 4:7]].astype(np.uint8),
+            "error": flat[starts + 7],
+            "lens": (counts - 8) // 2,
+            "track": flat[in_track].astype(np.int64).reshape(-1, 2)}
 
 
 def map_from_colmap(model_dir):

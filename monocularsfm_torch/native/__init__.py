@@ -10,6 +10,10 @@ The API (`get_lib()`, `available()`) is the reference's, so the copied
 `reconstruction/map_state.py` runs unchanged.  A failed build or load
 raises; the numpy track-maintenance path stays selectable with
 `Map.attach_scene_graph(use_native=False)`.
+
+`colmap_text.cpp`, the port's own, writes and parses the long lines of a
+COLMAP text model (`io/colmap.py`); `get_text_lib()` builds and loads it
+the same way.
 """
 
 from __future__ import annotations
@@ -25,28 +29,32 @@ import numpy as np
 _HERE = pathlib.Path(__file__).resolve().parent
 _ROOT = _HERE.parent.parent
 SRC = _HERE / "scene_graph_core.cpp"
+TEXT_SRC = _HERE / "colmap_text.cpp"
 BUILD_DIR = _ROOT / "build" / "monocularsfm_torch"
 FLAGS = ["-O3", "-std=c++17", "-shared", "-fPIC"]
 
 _lib = None
+_text_lib = None
 
 
-def library_path() -> pathlib.Path:
-    h = hashlib.sha256(SRC.read_bytes())
+def library_path(src: pathlib.Path = SRC) -> pathlib.Path:
+    h = hashlib.sha256(src.read_bytes())
     h.update(" ".join(FLAGS).encode())
-    return BUILD_DIR / f"libsfm_native_{h.hexdigest()[:16]}.so"
+    name = "native" if src == SRC else src.stem
+    return BUILD_DIR / f"libsfm_{name}_{h.hexdigest()[:16]}.so"
 
 
-def build() -> pathlib.Path:
-    """Compile the scene-graph core unless this exact build exists."""
-    if not SRC.exists():
-        raise RuntimeError(f"native source {SRC} is missing")
-    out = library_path()
+def build(src: pathlib.Path = SRC) -> pathlib.Path:
+    """Compile `src` (by default the scene-graph core) unless this exact
+    build exists."""
+    if not src.exists():
+        raise RuntimeError(f"native source {src} is missing")
+    out = library_path(src)
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = ["g++", *FLAGS, str(SRC), "-o", str(tmp)]
+    cmd = ["g++", *FLAGS, str(src), "-o", str(tmp)]
     try:
         res = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
     except FileNotFoundError as e:
@@ -90,6 +98,28 @@ def get_lib():
     lib.completion_candidates_batch.restype = i64
     _lib = lib
     return _lib
+
+
+def get_text_lib():
+    """The loaded COLMAP text writer and parser (built on the first call)."""
+    global _text_lib
+    if _text_lib is None:
+        lib = ctypes.CDLL(str(build(TEXT_SRC)))
+        p_f64 = np.ctypeslib.ndpointer(np.float64, flags="C_CONTIGUOUS")
+        p_i64 = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
+        lib.colmap_points2d_line.argtypes = [p_f64, p_i64, ctypes.c_int64,
+                                             ctypes.c_char_p]
+        lib.colmap_points2d_line.restype = ctypes.c_int64
+        lib.colmap_points3d_lines.argtypes = [p_i64, p_f64, p_i64, p_f64, p_i64,
+                                              p_i64, ctypes.c_int64,
+                                              ctypes.c_char_p]
+        lib.colmap_points3d_lines.restype = ctypes.c_int64
+        lib.colmap_parse_numbers.argtypes = [
+            ctypes.c_char_p, ctypes.c_int64, p_f64, ctypes.c_int64, p_i64,
+            ctypes.c_int64, ctypes.POINTER(ctypes.c_int64)]
+        lib.colmap_parse_numbers.restype = ctypes.c_int64
+        _text_lib = lib
+    return _text_lib
 
 
 def available() -> bool:

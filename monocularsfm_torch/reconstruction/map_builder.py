@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import itertools
 import json
 import os
 import pathlib
@@ -88,9 +89,10 @@ class MapBuilder:
                                          device=self.device)
         self.timers = {
             name: Timer(name)
-            for name in ("setup", "initialize", "register", "triangulate",
-                         "local_ba", "global_ba", "filter", "filter_pass",
-                         "complete_pass", "merge_pass", "total")
+            for name in ("setup", "resume", "initialize", "register",
+                         "triangulate", "local_ba", "global_ba", "ba_assemble",
+                         "ba_update", "filter", "filter_pass", "complete_pass",
+                         "merge_pass", "total")
         }
         self._last_global_ba_count = 0
         self._mesh = None    # lazy; False = resolved unavailable
@@ -268,9 +270,10 @@ class MapBuilder:
 
     def local_ba(self, image_id: int):
         with self._phase("local_ba"):
-            prob, image_ids, pids = self.map.get_local_ba_data(
-                image_id, window=self.cfg.map_builder.local_ba_window
-            )
+            with self._phase("ba_assemble"):
+                prob, image_ids, pids = self.map.get_local_ba_data(
+                    image_id, window=self.cfg.map_builder.local_ba_window
+                )
             # The reference runs the same 100-iteration optimizer for local
             # and global bundles (MapBuilder.cpp:576-609).
             bcfg = self.cfg.bundle
@@ -278,10 +281,11 @@ class MapBuilder:
             if prob.obs_cam.numel() > bcfg.dense_max_obs:
                 # Same capacity gate as global_ba: rebuild the window split
                 # (tight track_width rows) and route to the PCG path.
-                prob, image_ids, pids = self.map.get_local_ba_data(
-                    image_id, window=self.cfg.map_builder.local_ba_window,
-                    allow_split=True, track_width=bcfg.track_width,
-                )
+                with self._phase("ba_assemble"):
+                    prob, image_ids, pids = self.map.get_local_ba_data(
+                        image_id, window=self.cfg.map_builder.local_ba_window,
+                        allow_split=True, track_width=bcfg.track_width,
+                    )
                 kwargs = dict(solve_mode="pcg", pcg_iters=bcfg.pcg_iterations)
             out = self._solve(
                 prob,
@@ -294,7 +298,8 @@ class MapBuilder:
                 max_lm_diagonal=bcfg.max_lm_diagonal,
                 **kwargs,
             )
-            self.map.update_from_ba(out, image_ids, pids)
+            with self._phase("ba_update"):
+                self.map.update_from_ba(out, image_ids, pids)
             return out
 
     def global_ba(self):
@@ -324,9 +329,10 @@ class MapBuilder:
             # Landmark-sharded BA needs one row per point, so tracks split
             # across rows only on the single-device PCG path.
             split = (not dense) and mesh is None
-            prob, image_ids, pids = self.map.get_global_ba_data(
-                track_width=bcfg.track_width, allow_split=split
-            )
+            with self._phase("ba_assemble"):
+                prob, image_ids, pids = self.map.get_global_ba_data(
+                    track_width=bcfg.track_width, allow_split=split
+                )
             # < 10 images: tighter tolerances, 2x iterations
             # (CeresBundleOptimizer.cpp:279-291).
             small = len(image_ids) < bcfg.min_images_tight
@@ -376,7 +382,8 @@ class MapBuilder:
                        for k, v in out.items()}
             else:
                 out = self._solve(prob, **kwargs)
-            self.map.update_from_ba(out, image_ids, pids)
+            with self._phase("ba_update"):
+                self.map.update_from_ba(out, image_ids, pids)
             self._last_global_ba_count = len(self.map.registered_ids)
             self._metric(
                 "global_ba", cams=len(image_ids),
@@ -518,27 +525,96 @@ class MapBuilder:
         """Resume reconstruction from a COLMAP snapshot: restore poses,
         points and track back-pointers into the already-setup() builder and
         rewire the register scheduler."""
-        from monocularsfm_torch.io.colmap import read_colmap
+        from monocularsfm_torch.io.colmap import (read_colmap_images,
+                                                  read_colmap_points)
 
-        model = read_colmap(model_dir)
-        for image_id, im in model["images"].items():
-            if image_id not in self.map.images:
-                continue
-            self.map.add_image_pose(image_id, im["R"], im["t"])
-            self.register_graph.set_registered(image_id)
-        for pid, pt in sorted(model["points"].items()):
-            track = [
-                (i, k) for i, k in pt["track"]
-                if i in self.map.images and self.map.images[i].point3D[k] < 0
-            ]
-            if len(track) >= 2:
-                self.map.add_point3d(pt["xyz"], track)
-        self.map.modified_point3D_ids.clear()
-        self._last_global_ba_count = len(self.map.registered_ids)
+        with self._phase("resume"):
+            for image_id, im in read_colmap_images(model_dir).items():
+                if image_id not in self.map.images:
+                    continue
+                self.map.add_image_pose(image_id, im["R"], im["t"])
+                self.register_graph.set_registered(image_id)
+            self._restore_points(read_colmap_points(model_dir))
+            self.map.modified_point3D_ids.clear()
+            self._last_global_ba_count = len(self.map.registered_ids)
         self._log(
             f"[resume] {len(self.map.registered_ids)} images, "
             f"{self.map.num_points3D} points restored"
         )
+
+    def _restore_points(self, pts: dict):
+        """Add a snapshot's points (`io.colmap.read_colmap_points`) to the
+        map, leaving the state of one `Map.add_point3d` a point in id
+        order: each keeps the elements of its track in loaded images whose
+        keypoint is free, and is added if two remain.  Done at once unless
+        a keypoint lies in two tracks, where that order decides."""
+        m = self.map
+        if len(np.unique(pts["ids"])) < len(pts["ids"]):
+            raise ValueError("a point id appears twice in the snapshot")
+        order = np.argsort(pts["ids"], kind="stable")
+        lens = pts["lens"][order]
+        first = (np.cumsum(pts["lens"]) - pts["lens"])[order]
+        owner = np.repeat(np.arange(len(order)), lens)
+        obs = pts["track"][first[owner] + np.arange(len(owner))
+                           - (np.cumsum(lens) - lens)[owner]]
+        xyz = pts["xyz"][order]
+        if not m.images or not len(obs):
+            return
+        ids = np.array(sorted(m.images), np.int64)
+        sizes = [len(m.images[i].point3D) for i in ids.tolist()]
+        base = np.concatenate([[0], np.cumsum(sizes, dtype=np.int64)])
+        row = np.minimum(np.searchsorted(ids, obs[:, 0]), len(ids) - 1)
+        keep = ids[row] == obs[:, 0]
+        kpt = obs[keep, 1]
+        if np.any((kpt < 0) | (kpt >= np.asarray(sizes)[row[keep]])):
+            raise IndexError("a snapshot's track names a keypoint its image lacks")
+        node = base[row] + obs[:, 1]
+        taken = np.concatenate([m.images[i].point3D for i in ids.tolist()])
+        keep[keep] = taken[node[keep]] < 0
+        if len(np.unique(node[keep])) < int(keep.sum()):
+            for X, track in zip(xyz, np.split(obs, np.cumsum(lens)[:-1])):
+                track = [(i, k) for i, k in track.tolist() if i in m.images
+                         and m.images[i].point3D[k] < 0]
+                if len(track) >= 2:
+                    m.add_point3d(X, track)
+            return
+        added = np.bincount(owner[keep], minlength=len(order)) >= 2
+        keep &= added[owner]
+        n_new = int(added.sum())
+        new_id = np.full(len(order), -1, np.int64)
+        new_id[added] = m._next_id + np.arange(n_new)
+        # The point arrays grown as `Map._grow` grows them for each new id.
+        while len(m._alive) < m._next_id + n_new:
+            next_id, m._next_id = m._next_id, len(m._alive)
+            m._grow()
+            m._next_id = next_id
+        # The kept elements, in id order as the tracks were.
+        obs, node, new_pid = obs[keep], node[keep], new_id[owner[keep]]
+        new = new_id[added]
+        start = np.searchsorted(new_pid, new)
+        counts = np.diff(np.append(start, len(new_pid)))
+        colors = np.concatenate([m.images[i].colors for i in ids.tolist()])
+        color_sum = np.stack([np.bincount(new_pid - m._next_id, colors[node, c],
+                                          n_new) for c in range(3)], 1)
+        m._xyz[new] = xyz[added]
+        m._rgb[new] = color_sum / counts[:, None]
+        m._alive[new] = True
+        pairs = list(zip(obs[:, 0].tolist(), obs[:, 1].tolist()))
+        for pid, s, c in zip(new.tolist(), start.tolist(), counts.tolist()):
+            m._tracks[pid] = pairs[s:s + c]
+        m._num_points += n_new
+        m._next_id += n_new
+        # Each image's keypoints, and the scene graph's mirror of them.
+        by_node = np.argsort(node)
+        cut = np.searchsorted(node[by_node], base)
+        g = m.scene_graph
+        for k, image_id in enumerate(ids.tolist()):
+            sel = by_node[cut[k]:cut[k + 1]]
+            kpt, pid = obs[sel, 1], new_pid[sel]
+            m.images[image_id].point3D[kpt] = pid
+            if m._node_p3d is not None and image_id in g._node_offset:
+                inside = kpt < g.num_keypoints[image_id]
+                m._node_p3d[g._node_offset[image_id] + kpt[inside]] = pid[inside]
 
     def summary(self) -> BuildSummary:
         st = self.map.statistics()
