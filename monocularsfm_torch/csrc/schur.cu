@@ -52,6 +52,12 @@
 // the device-memory paths.  Launched on the caller's stream; allocates
 // nothing.  The entry point returns a CUDA error code (0 on success) after
 // its launches.
+//
+// An optional device flag `active` (int32) gates both passes: where it reads
+// 0 they return at once and leave payload and out as they were.  The PCG
+// loop's CUDA graph (optim/pcg.py) replays blocks of CG steps past the
+// solver's stop; there the flag keeps a step after the stop from changing
+// anything and from costing the pair's bytes.  Eager callers pass null.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -246,7 +252,8 @@ __device__ __forceinline__ void tile_products(
 // pt, cam, slot: (n,) per point-order position, its point, its camera and
 //   its row of the camera order; pt is non-decreasing;
 // tile_start: (tiles + 1,) the first position of each tile's points;
-// W (O, 6, 3), Vi (P, 3, 3), x (C, 6); payload (n, 8) in camera order.
+// W (O, 6, 3), Vi (P, 3, 3), x (C, 6); active null or the gate; payload
+// (n, 8) in camera order.
 // Persistent blocks walk the tiles with a stride of the grid; each stages
 // its next tile (cp.async, two stages) while it works on the current one.
 __global__ void __launch_bounds__(kPointThreads)
@@ -254,7 +261,9 @@ points_pass(const float* __restrict__ W, const int* __restrict__ order,
             const int* __restrict__ pt, const int* __restrict__ cam,
             const int* __restrict__ slot, const float* __restrict__ Vi,
             const float* __restrict__ x, const int* __restrict__ tile_start,
-            float* __restrict__ payload, int n, int tiles) {
+            const int* __restrict__ active, float* __restrict__ payload, int n,
+            int tiles) {
+  if (active != nullptr && __ldg(active) == 0) return;
   extern __shared__ __align__(16) unsigned char smem[];
   Stage* st = reinterpret_cast<Stage*>(smem);
   float* sT = reinterpret_cast<float*>(st + 2);  // W^T x, then y, a position
@@ -283,11 +292,12 @@ points_pass(const float* __restrict__ W, const int* __restrict__ order,
 }
 
 // payload (n, 8) in camera order; start (C + 1,) each camera's first row;
-// U (C, 6, 6) or null, x (C, 6); out (C, 6).
+// U (C, 6, 6) or null, x (C, 6); active null or the gate; out (C, 6).
 __global__ void __launch_bounds__(kCamThreads)
 cams_pass(const float* __restrict__ payload, const int* __restrict__ start,
           const float* __restrict__ U, const float* __restrict__ x,
-          float* __restrict__ out) {
+          const int* __restrict__ active, float* __restrict__ out) {
+  if (active != nullptr && __ldg(active) == 0) return;
   __shared__ float part[kCamThreads / 32][6];
   const int c = blockIdx.x, tid = threadIdx.x;
   const int b = __ldg(start + c), e = __ldg(start + c + 1);
@@ -337,14 +347,16 @@ extern "C" {
 
 // U_d x - sum_o W_o Vi_p W_o^T x (or the sum alone where U is null) into
 // out (C, 6); payload is (n, 8) scratch; tile_start (tiles + 1,) cut with
-// `tile` positions a tile, which must be kTile.  The index arrays are
-// int32; the float arrays float32, contiguous, 16-byte aligned.
+// `tile` positions a tile, which must be kTile.  Where active is not null
+// and reads 0 on the device, both passes leave payload and out untouched.
+// The index arrays are int32; the float arrays float32, contiguous, 16-byte
+// aligned.
 int sfm_schur_product(const float* W, const int* order, const int* pt,
                       const int* cam, const int* slot, const float* Vi,
                       const float* x, const int* tile_start,
-                      const int* cam_start, const float* U, float* payload,
-                      float* out, int n, int tile, int tiles, int C,
-                      void* stream) {
+                      const int* cam_start, const float* U, const int* active,
+                      float* payload, float* out, int n, int tile, int tiles,
+                      int C, void* stream) {
   if (n < 0 || C < 0 || n > (1 << 30) || tile != kTile
       || tiles != (n + kTile - 1) / kTile)
     return (int)cudaErrorInvalidValue;
@@ -369,12 +381,12 @@ int sfm_schur_product(const float* W, const int* order, const int* pt,
       resident_blocks[dev] = sms * max(per_sm, 1);
     }
     points_pass<<<min(tiles, resident_blocks[dev]), kPointThreads, kPointSmem,
-                  st>>>(W, order, pt, cam, slot, Vi, x, tile_start, payload,
-                        n, tiles);
+                  st>>>(W, order, pt, cam, slot, Vi, x, tile_start, active,
+                        payload, n, tiles);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
-  cams_pass<<<C, kCamThreads, 0, st>>>(payload, cam_start, U, x, out);
+  cams_pass<<<C, kCamThreads, 0, st>>>(payload, cam_start, U, x, active, out);
   return (int)cudaGetLastError();
 }
 

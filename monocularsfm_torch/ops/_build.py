@@ -40,7 +40,7 @@ _SIGNATURES = {
     "sfm_blur_vh": ([_P, _P, _P, ctypes.c_longlong, _I, _I, _I, _I, _I, _P], _I),
     "sfm_match_tile": ([_P, _P, _I, _I, _P, _P, _I, _I, _P, _P, _P, _P, _P,
                         _P, _P, _I, _I, _P], _I),
-    "sfm_schur_product": ([_P] * 12 + [_I] * 4 + [_P], _I),
+    "sfm_schur_product": ([_P] * 13 + [_I] * 4 + [_P], _I),
 }
 # The entry points of each source's library.
 _LIBRARIES = {

@@ -34,8 +34,9 @@ import torch
 from monocularsfm_torch.ops import _build
 from monocularsfm_torch.utils.segment import SegmentPlan, segment_sum
 
-# Launches of each pass, counted where the wrapper launches them: one of
-# each a product.
+# The passes that did a product's work, one of each a product: counted by
+# the wrapper where it launches them without a flag, and by the caller
+# (`count_passes`) where a flag gates them (see `schur_product`).
 LAUNCHES = {"schur_points": 0, "schur_cams": 0}
 # The point pass's tile: a block of it owns the points that start in TILE
 # consecutive positions of the point order (csrc/schur.cu's kTile).
@@ -45,6 +46,16 @@ TILE = 128
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def count_passes(plan: "SchurPlan", products: int) -> None:
+    """Add `products` to the count of each pass that has work under `plan`
+    (the point pass where there are observations, the camera pass where
+    there are cameras)."""
+    if plan.cam_plan.ids.numel():
+        LAUNCHES["schur_points"] += products
+    if plan.cam_plan.num_segments:
+        LAUNCHES["schur_cams"] += products
 
 
 def _mv(M: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -153,10 +164,21 @@ def _check(name: str, t: torch.Tensor, shape: tuple, dtype, dev) -> None:
 
 
 def schur_product(W: torch.Tensor, Vi: torch.Tensor, x: torch.Tensor,
-                  plan: SchurPlan, U_d: torch.Tensor | None = None) -> torch.Tensor:
+                  plan: SchurPlan, U_d: torch.Tensor | None = None, *,
+                  active: torch.Tensor | None = None,
+                  out: torch.Tensor | None = None,
+                  payload: torch.Tensor | None = None) -> torch.Tensor:
     """The kernel (CUDA tensors) or `schur_product_plain` (CPU tensors):
     W (O, 6, 3), Vi (P, 3, 3), x (C, 6), U_d (C, 6, 6) or None, all
-    float32, over the plan's O observations, P points and C cameras."""
+    float32, over the plan's O observations, P points and C cameras.
+
+    On the card, `out` (C, 6) and `payload` (O, 8) float32 may be given to
+    write into (else each call allocates them), and `active`, an int32
+    device scalar, gates both passes: where it reads 0 when they run they
+    leave `out` as it was.  A gated launch may be one node of a CUDA graph,
+    replayed any number of times and past the gate, so this wrapper counts
+    it in `LAUNCHES` only without a gate; a caller that gates counts with
+    `count_passes` the products that ran with the gate open."""
     if x.device.type == "cpu":
         return schur_product_plain(W, Vi, x, plan, U_d)
     if plan.cam is None:
@@ -169,22 +191,30 @@ def schur_product(W: torch.Tensor, Vi: torch.Tensor, x: torch.Tensor,
     _check("Vi", Vi, (plan.pt_plan.num_segments, 3, 3), f32, dev)
     if U_d is not None:
         _check("U_d", U_d, (C, 6, 6), f32, dev)
+    if active is not None and (active.device != dev or active.numel() != 1
+                               or active.dtype != torch.int32):
+        raise ValueError("schur_product: active must be one int32 on the "
+                         f"card, got {active.dtype} {tuple(active.shape)} "
+                         f"on {active.device}")
     if plan.cam.device != dev:
         raise ValueError(f"schur_product: the plan lies on {plan.cam.device}, "
                          f"not {dev}")
     # The kernel's scratch: 8 floats an observation (csrc/schur.cu's kRow).
-    payload = torch.empty((n, 8), dtype=f32, device=dev)
-    out = torch.empty((C, 6), dtype=f32, device=dev)
+    if payload is None:
+        payload = torch.empty((n, 8), dtype=f32, device=dev)
+    _check("payload", payload, (n, 8), f32, dev)
+    if out is None:
+        out = torch.empty((C, 6), dtype=f32, device=dev)
+    _check("out", out, (C, 6), f32, dev)
     _build.check(_build.lib().sfm_schur_product(
         W.data_ptr(), None if plan.order is None else plan.order.data_ptr(),
         plan.pt.data_ptr(), plan.cam.data_ptr(), plan.slot.data_ptr(),
         Vi.data_ptr(), x.data_ptr(), plan.tile_start.data_ptr(),
         plan.cam_start.data_ptr(), None if U_d is None else U_d.data_ptr(),
+        None if active is None else active.data_ptr(),
         payload.data_ptr(), out.data_ptr(), n, TILE,
         plan.tile_start.numel() - 1, C, _build.stream_ptr(dev)),
         "sfm_schur_product")
-    if n:                               # the point pass has work
-        LAUNCHES["schur_points"] += 1
-    if C:
-        LAUNCHES["schur_cams"] += 1
+    if active is None:
+        count_passes(plan, 1)
     return out

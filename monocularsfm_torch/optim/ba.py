@@ -29,11 +29,13 @@ Same algorithm as the reference, written as plain tensor code:
   point indices, so `point_rows` may come in any order (the reference
   routes unsorted rows to its flash path, which solves the same system).
   On the card each CG step's product with S is one hand-written kernel
-  pair (ops/schur.py, csrc/schur.cu) that reads the cached W once.
+  pair (ops/schur.py, csrc/schur.cu) that reads the cached W once, and the
+  CG loop runs as a CUDA graph of masked steps (optim/pcg.py).
 * The trust-region loop is classic LM radius control as in Ceres.  The
   reference runs it, and CG, as device while-loops; here the host reads
-  the LM exit flag once per LM iteration and the CG exit test once per CG
-  step (one device sync each), so iteration counts follow the same rules.
+  the LM exit flag once per LM iteration, and the CG exit test once per CG
+  step, or on the card without a group once per replayed block of CG
+  steps (one device sync each), so iteration counts follow the same rules.
   As in the reference, the loop may run in segments (`dispatch_iters`),
   each resuming from the state (K, R, t, X, radius, cost, iterations,
   converged) the last one ended in (`init_state`).
@@ -51,19 +53,15 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 from typing import Any
 
 import numpy as np
 import torch
 
 from monocularsfm_torch.geometry.rotations import angle_axis_to_matrix, skew
-from monocularsfm_torch.ops.schur import (
-    _mv,
-    cams_of,
-    points_of,
-    schur_plan,
-    schur_product,
-)
+from monocularsfm_torch.ops.schur import _mv, cams_of, points_of, schur_plan
+from monocularsfm_torch.optim.pcg import CGGraph, cg_eager
 from monocularsfm_torch.utils.segment import segment_plan, segment_sum
 from monocularsfm_torch.utils.spans import span
 
@@ -262,8 +260,10 @@ def bundle_adjust(
     Returns a dict of R, t, X, K, cost_initial, cost_final, rmse_initial,
     rmse_final (per residual component), mean_reproj_error (per
     observation), num_residuals, radius (tensors), iterations (int),
-    converged (bool) and cg_steps (int, the PCG solver's CG steps in all).
-    cost_initial and rmse_initial are those of the first segment."""
+    converged (bool), cg_steps (int, the PCG solver's CG steps in all) and
+    cg_reads (int, the blocking reads of its CG loops: one a stop test, or
+    one a replayed block of steps on the card).  cost_initial and
+    rmse_initial are those of the first segment."""
     if pcg_cached:
         need = _pcg_capacities(prob)
         if not need:
@@ -286,7 +286,7 @@ def bundle_adjust(
               pcg_iters=pcg_iters, refine_focal=refine_focal,
               min_lm_diagonal=min_lm_diagonal, max_lm_diagonal=max_lm_diagonal,
               pcg_rtol=pcg_rtol, group=group, schur_chunk=schur_chunk)
-    state, first, cg_steps = init_state, None, 0
+    state, first, cg_steps, cg_reads = init_state, None, 0, 0
     with span("ba.solve"):
         while True:
             if dispatch_iters is None:
@@ -296,6 +296,7 @@ def bundle_adjust(
                 limit = min(start + dispatch_iters, max_iterations)
             out = _lm_segment(prob, limit, state, **kw)
             cg_steps += out["cg_steps"]
+            cg_reads += out["cg_reads"]
             if first is None:
                 first = out
             if out["iterations"] >= max_iterations or out["converged"]:
@@ -304,7 +305,8 @@ def bundle_adjust(
                                            "cost_final", "iterations",
                                            "converged"))
     out.update(cost_initial=first["cost_initial"],
-               rmse_initial=first["rmse_initial"], cg_steps=cg_steps)
+               rmse_initial=first["rmse_initial"], cg_steps=cg_steps,
+               cg_reads=cg_reads)
     return out
 
 
@@ -380,6 +382,14 @@ def _lm_segment(
     cam_plan, pt_plan = segment_plan(cam_o, C), segment_plan(pt_o, Pn)
     if solve_mode == "pcg":
         schur = schur_plan(cam_plan, pt_plan)
+        # The CG loop: a CUDA graph on the card without a group, else eager
+        # (a group's S x makes a collective every step).
+        if dev.type == "cuda" and group is None:
+            cg = CGGraph(schur, pcg_iters)
+        else:
+            cg = functools.partial(
+                cg_eager, schur, pcg_iters,
+                reduce=None if group is None else lambda s: psum(s)[0])
     uv_o = prob.obs_uv.reshape(-1, 2)[obs]
     num_res = torch.tensor(float(obs.numel()), device=dev)  # this rank's
     free_cam = (prob.cam_valid & ~prob.cam_const).to(f32)  # (C,)
@@ -547,69 +557,38 @@ def _lm_segment(
             step_sq = step_sq + (df * df).sum()
         return cost, new_cost, pred, K_new, R_new, t_new, X_new, step_sq, g_inf, 0
 
-    def cg_continues(k, res, tol2):
-        """The CG loop's test before step k + 1: none at `pcg_iters`, else
-        ||res||^2 > tol2, read on the host."""
-        if k >= pcg_iters:
-            return False
-        more = (res * res).sum() > tol2
-        with span("host_read.cg_test"):
-            return bool(more)
-
     def try_step_pcg(K, R, t, X, lam, phases):
         """One LM step by PCG.  Its phases are spans that each end at a
         host read, which drains the card's queue: `ba.linearize` up to the
-        CG loop's first test, one `ba.cg_step` a loop body with the test
-        after it, and `ba.step_eval`, which `phases` closes after the LM
-        exit read."""
-        with span("ba.linearize"):
-            r, Jc, Jp, _, _ = linearize(K, R, t, X)
-            cost = 0.5 * (r * r).sum()
-            U = to_cams(_tmm(Jc, Jc))
-            g_c = to_cams(-_mv(Jc.transpose(-1, -2), r))
-            V = to_points(_tmm(Jp, Jp))
-            g_p = to_points(-_mv(Jp.transpose(-1, -2), r))
-            W = _tmm(Jc, Jp)                                   # cached (O, 6, 3)
-            del Jc, Jp
-            cost, U, g_c = psum(cost, U, g_c)
-            g_inf = gradient_inf(g_c, g_p)
-            U_d, V_d = damp(U, V, lam)
-            Vi = _inv3x3(V_d)
-            Uinv = torch.linalg.inv_ex(U_d)[0]
+        CG loop's first test (on the card without a group, up to its first
+        replay, without a read), then the loop's own spans (optim/pcg.py),
+        and `ba.step_eval`, which `phases` closes after the LM exit read."""
+        nonlocal cg_reads
+        lead = phases.enter_context(span("ba.linearize"))
+        r, Jc, Jp, _, _ = linearize(K, R, t, X)
+        cost = 0.5 * (r * r).sum()
+        U = to_cams(_tmm(Jc, Jc))
+        g_c = to_cams(-_mv(Jc.transpose(-1, -2), r))
+        V = to_points(_tmm(Jp, Jp))
+        g_p = to_points(-_mv(Jp.transpose(-1, -2), r))
+        W = _tmm(Jc, Jp)                                       # cached (O, 6, 3)
+        del Jc, Jp
+        cost, U, g_c = psum(cost, U, g_c)
+        g_inf = gradient_inf(g_c, g_p)
+        U_d, V_d = damp(U, V, lam)
+        Vi = _inv3x3(V_d)
+        Uinv = torch.linalg.inv_ex(U_d)[0]
 
-            def WT_pts(x):     # (C, 6) -> (Pn, 3): per-point sum of W^T x_cam
-                return points_of(W, x, schur)
+        def WT_pts(x):     # (C, 6) -> (Pn, 3): per-point sum of W^T x_cam
+            return points_of(W, x, schur)
 
-            def Wy_cams(y):    # (Pn, 3) -> (C, 6): per-camera sum of W y_p
-                return cams_of(W, y, schur)
+        def Wy_cams(y):    # (Pn, 3) -> (C, 6): per-camera sum of W y_p
+            return cams_of(W, y, schur)
 
-            def S_mul(x):
-                if group is None:
-                    return schur_product(W, Vi, x, schur, U_d)
-                # U_d x is replicated: only the point-sharded term is reduced.
-                return _mv(U_d, x) - psum(schur_product(W, Vi, x, schur))[0]
-
-            rhs = g_c - psum(Wy_cams(_mv(Vi, g_p)))[0]
-            x = torch.zeros_like(rhs)
-            res = rhs
-            z = _mv(Uinv, res)
-            pvec = z
-            rz = (res * z).sum()
-            tol2 = (pcg_rtol * pcg_rtol) * (rhs * rhs).sum()
-            k = 0
-            more = cg_continues(k, res, tol2)
-        while more:
-            with span("ba.cg_step"):
-                Sp = S_mul(pvec)
-                alpha = rz / torch.clamp((pvec * Sp).sum(), min=1e-20)
-                x = x + alpha * pvec
-                res = res - alpha * Sp
-                z = _mv(Uinv, res)
-                rz_new = (res * z).sum()
-                pvec = z + (rz_new / torch.clamp(rz, min=1e-20)) * pvec
-                rz = rz_new
-                k += 1
-                more = cg_continues(k, res, tol2)
+        rhs = g_c - psum(Wy_cams(_mv(Vi, g_p)))[0]
+        tol2 = (pcg_rtol * pcg_rtol) * (rhs * rhs).sum()
+        x, k, reads = cg(W, Vi, U_d, Uinv, rhs, tol2, lead=lead)
+        cg_reads += reads
         phases.enter_context(span("ba.step_eval"))
         dc = x * free_cam[:, None]
         dp = _mv(Vi, g_p - WT_pts(dc)) * pv[:, None]
@@ -637,7 +616,7 @@ def _lm_segment(
         radius, cost, it, done = init_state[4:]
     radius = torch.as_tensor(radius, dtype=f32, device=dev)
     cost = torch.as_tensor(cost, dtype=f32, device=dev)
-    it, done, cg_steps = int(it), bool(done), 0
+    it, done, cg_steps, cg_reads = int(it), bool(done), 0, 0
     prepare.close()
     while it < max_iterations and not done:
         with contextlib.ExitStack() as phases:
@@ -684,6 +663,7 @@ def _lm_segment(
         "radius": radius,
         "converged": done,
         "cg_steps": cg_steps,
+        "cg_reads": cg_reads,
     }
 
 

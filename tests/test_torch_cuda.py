@@ -693,6 +693,11 @@ def test_schur_product_rejects_what_the_kernel_does_not_take(dev):
         "non-contiguous W": dict(W=W.transpose(1, 2).contiguous().transpose(1, 2)),
         "unaligned x": dict(x=torch.empty(x.numel() + 1, device=dev)[1:].view_as(x)),
         "U_d of the wrong shape": dict(U_d=U[:, :3]),
+        "a float gate": dict(active=torch.ones((), device=dev)),
+        "a gate on the CPU": dict(active=torch.ones((), dtype=torch.int32)),
+        "out of the wrong shape": dict(out=torch.empty_like(x)[1:]),
+        "payload of the wrong shape": dict(
+            payload=torch.empty((W.shape[0], 6), device=dev)),
     }
     for what, kw in bad.items():
         args = {**dict(W=W, Vi=Vi, x=x, plan=plan, U_d=U), **kw}
@@ -703,3 +708,144 @@ def test_schur_product_rejects_what_the_kernel_does_not_take(dev):
                                 segment_plan(plan.pt_plan.ids.cpu(), Vi.shape[0]))
     with pytest.raises(ValueError, match="fixed-order"):
         schur.schur_product(W, Vi, x, cpu_plan, U)
+
+
+@pytest.mark.parametrize("case", SCHUR_CASES)
+def test_schur_kernel_gate(dev, case):
+    """The pair under a gate: shut, it leaves out and the payload as they
+    were; open, it equals the ungated call bit for bit, into the buffers
+    given; neither is counted in LAUNCHES (the gating caller counts)."""
+    from monocularsfm_torch.ops import schur
+
+    W, Vi, x, U, plan, _ = _schur_inputs(case, dev)
+    shut = torch.zeros((), dtype=torch.int32, device=dev)
+    for U_d in (U, None):
+        want = schur.schur_product(W, Vi, x, plan, U_d)
+        out = torch.full_like(want, 7.0)
+        payload = torch.full((W.shape[0], 8), 3.0, device=dev)
+        schur.reset_launches()
+        schur.schur_product(W, Vi, x, plan, U_d, active=shut, out=out,
+                            payload=payload)
+        torch.cuda.synchronize()
+        assert (out == 7.0).all() and (payload == 3.0).all()
+        got = schur.schur_product(W, Vi, x, plan, U_d, active=shut + 1,
+                                  out=out, payload=payload)
+        assert got is out and torch.equal(out, want)
+        assert schur.LAUNCHES == {"schur_points": 0, "schur_cams": 0}
+
+
+# -- the PCG path's CG loop as a CUDA graph (optim/pcg.py) -----------------
+
+def _cg_inputs_on_the_card(dev, monkeypatch):
+    """The CG loop's inputs (plan, W, Vi, U_d, Uinv, rhs, tol2) in the
+    first LM iteration of a PCG solve of a 32-camera ring on the card."""
+    from monocularsfm_torch.optim import ba, bundle_adjust
+    from monocularsfm_torch.utils.ring_problem import ring_problem
+
+    seen = []
+
+    class Recorder(ba.CGGraph):
+        def __call__(self, *args, **kw):
+            seen.append((self.plan, args))
+            return super().__call__(*args, **kw)
+
+    monkeypatch.setattr(ba, "CGGraph", Recorder)
+    prob = ring_problem(32, 6000, 6, seed=2, row_width=3)[0].to(dev)
+    bundle_adjust(prob, max_iterations=1, solve_mode="pcg", pcg_iters=5)
+    plan, args = seen[0]
+    return plan, list(args)
+
+
+def _residual_history(plan, W, Vi, U_d, Uinv, rhs, n):
+    """||res||^2 before each of steps 1 .. n + 1 of the eager loop with no
+    stop (the same kernels on the same values, so the same bits)."""
+    from monocularsfm_torch.ops import schur
+    from monocularsfm_torch.optim import pcg
+
+    x, res, pvec, rz = pcg.cg_start(Uinv, rhs)
+    r2 = [(res * res).sum()]
+    for _ in range(n):
+        Sp = schur.schur_product(W, Vi, pvec, plan, U_d)
+        x, res, pvec, rz = pcg.cg_step(Sp, Uinv, x, res, pvec, rz)
+        r2.append((res * res).sum())
+    return torch.stack(r2)
+
+
+def _stop_at(r2, steps):
+    """The first of `steps` at which a tolerance tol2 = r2[j] stops the
+    loop (every earlier test reads more than it), and that tol2."""
+    for j in steps:
+        if j > 0 and bool((r2[:j] > r2[j]).all()):
+            return j, r2[j].clone()
+    pytest.fail(f"no stop among {list(steps)[:8]}...")
+
+
+CG_CASES = ["rtol_inside", "rtol_boundary", "cap_multiple", "cap_not_multiple",
+            "zero_rhs"]
+
+
+@pytest.mark.parametrize("case", CG_CASES)
+def test_cg_graph_equals_the_eager_loop(dev, monkeypatch, case):
+    """The CUDA graph of masked CG bodies against the eager loop on one
+    LM iteration's inputs: the same x and k bit for bit, one read a replay
+    (the stop test inside a replay, on a replay's first body, the cap at a
+    multiple of the block and not, a zero rhs that takes no step), and the
+    same again on a second call of one graph."""
+    from monocularsfm_torch.ops import schur
+    from monocularsfm_torch.optim import pcg
+
+    plan, (W, Vi, U_d, Uinv, rhs, tol2) = _cg_inputs_on_the_card(dev, monkeypatch)
+    n = {"cap_multiple": 50, "cap_not_multiple": 37}.get(case, 100)
+    if case.startswith("cap") or case == "zero_rhs":
+        tol2 = torch.zeros_like(tol2)
+        want = n if case.startswith("cap") else 0
+    if case == "zero_rhs":
+        rhs = torch.zeros_like(rhs)
+    if case == "rtol_inside":
+        steps = pcg.block_steps(n)
+        r2 = _residual_history(plan, W, Vi, U_d, Uinv, rhs, n)
+        want, tol2 = _stop_at(r2, [j for j in range(steps + 1, n) if j % steps])
+    if case == "rtol_boundary":
+        r2 = _residual_history(plan, W, Vi, U_d, Uinv, rhs, 100)
+        for n in range(33, 101):
+            steps = pcg.block_steps(n)
+            hits = [j for j in range(steps, n, steps) if bool((r2[:j] > r2[j]).all())]
+            if hits:
+                break
+        want, tol2 = _stop_at(r2, hits)
+    steps = pcg.block_steps(n)
+    assert (want % steps == 0) == (case in ("rtol_boundary", "cap_multiple",
+                                            "zero_rhs"))
+    x, k, reads = pcg.cg_eager(plan, n, W, Vi, U_d, Uinv, rhs, tol2)
+    assert k == want and reads == (k if k == n else k + 1)
+    graph = pcg.CGGraph(plan, n)
+    schur.reset_launches()
+    for _ in range(2):
+        xg, kg, reads_g = graph(W, Vi, U_d, Uinv, rhs, tol2)
+        assert kg == k and torch.equal(xg, x), case
+        assert reads_g == (-(-n // steps) if k == n else k // steps + 1)
+    assert schur.LAUNCHES == {"schur_points": 2 * k, "schur_cams": 2 * k}
+
+
+def test_pcg_bundle_adjust_through_the_graph_equals_the_eager_loop(dev, monkeypatch):
+    """A whole PCG solve on the card: through the graph, the eager loop's
+    R, t, X, costs, LM iterations and CG steps bit for bit, with one read
+    a replay: at most ceil(cg_steps / K) + iterations."""
+    import functools
+
+    from monocularsfm_torch.optim import ba, bundle_adjust, pcg
+    from monocularsfm_torch.utils.ring_problem import ring_problem
+
+    prob = ring_problem(32, 6000, 6, seed=2, row_width=3)[0].to(dev)
+    kw = dict(max_iterations=8, solve_mode="pcg", pcg_iters=30)
+    graph = bundle_adjust(prob, **kw)
+    monkeypatch.setattr(ba, "CGGraph",
+                        lambda plan, n: functools.partial(pcg.cg_eager, plan, n))
+    eager = bundle_adjust(prob, **kw)
+    for key in ("R", "t", "X", "cost_initial", "cost_final", "radius"):
+        assert torch.equal(graph[key], eager[key]), key
+    for key in ("iterations", "cg_steps", "converged"):
+        assert graph[key] == eager[key], key
+    steps, it = graph["cg_steps"], graph["iterations"]
+    assert steps > 0 and eager["cg_reads"] >= steps
+    assert graph["cg_reads"] <= -(-steps // pcg.block_steps(30)) + it

@@ -11,15 +11,20 @@ it once untraced and then back to back for `--seconds` under torch.profiler
 trace (`sfmbench/lib/spans.py`):
 
 * the phase split: `ba.prepare` ms a solve, and the mean `ba.linearize`,
-  `ba.cg_step` and `ba.step_eval` spans;
-* host reads a solve, launch calls a CG step, and the share of the window
-  in which the card idles after a blocking read, beside the card's idle
-  share as the benchmark reads it and the idle time by innermost span;
+  CG loop and `ba.step_eval` spans.  The CG loop's spans are one
+  `ba.cg_step` a CG step where it runs eagerly, or on the card one
+  `ba.cg_block` a replay of its CUDA graph and one `ba.cg_capture` a solve
+  (optim/pcg.py);
+* host reads a solve, launch calls (kernels and graphs) a CG step, and
+  the share of the window in which the card idles after a blocking read,
+  beside the card's idle share as the benchmark reads it and the idle
+  time by innermost span;
 * checks: the spans in the window against the solves' own counts (one
-  `ba.cg_step` a CG step, one `ba.linearize` and `ba.step_eval` an LM
-  iteration, one `ba.solve` a solve), every traced solve's outputs equal
-  bit for bit to the untraced one's, no span's name among the card's
-  operations, and the phases' sum against the solves' mean wall;
+  `ba.cg_step` a CG step, or one read a `ba.cg_block`; one `ba.linearize`
+  and `ba.step_eval` an LM iteration, one `ba.solve` a solve), every
+  traced solve's outputs equal bit for bit to the untraced one's, no
+  span's name among the card's operations, and the phases' sum against
+  the solves' mean wall;
 * a span's host cost with no profiler running and under one, and the
   spans' cost in traced solves: `--pairs` pairs of single solves under
   torch.profiler, one with the spans on and one with them held off (their
@@ -33,6 +38,7 @@ limit; exits 1 if a check fails.
 from __future__ import annotations
 
 import argparse
+import bisect
 import json
 import pathlib
 import sys
@@ -47,12 +53,14 @@ sys.path.insert(0, str(REPO))
 from sfmbench import harness  # noqa: E402
 from sfmbench.lib import spans as S  # noqa: E402
 from sfmbench.lib.common import State  # noqa: E402
-from sfmbench.lib.trace import HARNESS_SPAN, read_profile  # noqa: E402
+from sfmbench.lib.trace import HARNESS_SPAN, _ns, read_profile  # noqa: E402
 from sfmbench.stages import global_ba  # noqa: E402
 
 CELL = "neu.global-ba"
 PROGRAM_SPANS = ("ba.solve", "ba.prepare", "ba.linearize", "ba.cg_step",
-                 "ba.step_eval", "host_read.")
+                 "ba.cg_block", "ba.cg_capture", "ba.step_eval", "host_read.")
+# Runtime calls that launch work: kernels, and a CUDA graph's replay.
+LAUNCHES = S.LAUNCH_PREFIXES + ("cudaGraphLaunch", "cuGraphLaunch")
 
 
 def log(*a):
@@ -159,6 +167,8 @@ def main(argv=None) -> int:
     trace = read_profile(prof, [])
     sd = S.read_spans(prof, trace.window)
     launch_names = S.launch_names(prof)
+    launch_calls = sorted(_ns(ev, "start") for ev in prof.profiler.kineto_results.events()
+                          if ev.name().startswith(LAUNCHES))
     del prof
     result["read_s"] = time.perf_counter() - t0
 
@@ -166,15 +176,26 @@ def main(argv=None) -> int:
     iters = sum(r["iterations"] for r in records)
     steps = sum(r["cg_steps"] for r in records)
     wall = sum(r["wall_s"] for r in records) / n
+    graph = bool(sd.named("ba.cg_block"))
+    loop = "ba.cg_block" if graph else "ba.cg_step"
+    solves = len(sd.named("ba.solve"))
     phases = {
         "ba.prepare_ms_per_solve": S.prepare_ms_per_solve(sd),
         "ba.linearize_ms_per_iter": S.mean_ms(sd, "ba.linearize"),
-        "ba.cg_step_ms": S.mean_ms(sd, "ba.cg_step"),
+        "ba.cg_loop_ms_per_solve": (S.total_ms(sd, loop) or 0.0) / max(solves, 1),
         "ba.step_eval_ms_per_iter": S.mean_ms(sd, "ba.step_eval"),
     }
+    if graph:
+        phases["ba.cg_capture_ms_per_solve"] = (
+            S.total_ms(sd, "ba.cg_capture") or 0.0) / max(solves, 1)
+    loop_spans = sd.named(loop)
+    in_loop = sum(bisect.bisect_left(launch_calls, e)
+                  - bisect.bisect_left(launch_calls, s) for s, e in loop_spans)
     metrics = dict(phases, **{
+        "ba.cg_step_ms": S.mean_ms(sd, "ba.cg_step"),
+        "ba.cg_block_ms": S.mean_ms(sd, "ba.cg_block"),
         "ba.host_reads_per_solve": S.host_reads_per_solve(sd),
-        "ba.launches_per_cg_step": S.launches_per_cg_step(sd),
+        "ba.launches_per_cg_step": in_loop / steps if steps else None,
         "device_idle_pct.ba.after_read": S.idle_after_read_pct(trace, sd),
         # The benchmark's own readers, for the same window.
         "device_idle_pct.ba": 100.0 * (1.0 - trace.busy_s / trace.window_s),
@@ -185,7 +206,10 @@ def main(argv=None) -> int:
         if name.startswith(S.READ_PREFIX) and trace.window[0] <= s and e <= trace.window[1]:
             reads[name] = reads.get(name, 0) + 1
     counted = {name: len(sd.named(name)) for name in
-               ("ba.solve", "ba.prepare", "ba.linearize", "ba.cg_step", "ba.step_eval")}
+               ("ba.solve", "ba.prepare", "ba.linearize", "ba.cg_step",
+                "ba.cg_block", "ba.cg_capture", "ba.step_eval")}
+    block_reads = sum(len(sd.inside(o, lambda nm: nm == "host_read.cg_test"))
+                      for o in loop_spans)
     on_card = sorted({nm for nm, _, _ in trace.device
                       if nm.startswith(PROGRAM_SPANS)})
     it_per, st_per = iters / n, steps / n
@@ -194,13 +218,18 @@ def main(argv=None) -> int:
         phase_sum_ms = (phases["ba.prepare_ms_per_solve"]
                         + it_per * (phases["ba.linearize_ms_per_iter"]
                                     + phases["ba.step_eval_ms_per_iter"])
-                        + st_per * phases["ba.cg_step_ms"])
+                        + phases["ba.cg_loop_ms_per_solve"]
+                        + phases.get("ba.cg_capture_ms_per_solve", 0.0))
     checks = {
-        "cg_step_spans_eq_cg_steps": counted["ba.cg_step"] == steps,
+        "cg_loop_spans_follow_the_steps": (
+            block_reads == len(loop_spans) and counted["ba.cg_step"] == 0
+            and counted["ba.cg_capture"] == n if graph
+            else counted["ba.cg_step"] == steps),
         "linearize_spans_eq_iterations": counted["ba.linearize"] == iters,
         "step_eval_spans_eq_iterations": counted["ba.step_eval"] == iters,
         "solve_spans_eq_solves": counted["ba.solve"] == n,
-        "all_metrics_read": all(v is not None for v in metrics.values()),
+        "all_metrics_read": all(v is not None for k, v in metrics.items()
+                                if k != ("ba.cg_step_ms" if graph else "ba.cg_block_ms")),
         "phase_sum_within_3pct_of_wall": (
             phase_sum_ms is not None and abs(phase_sum_ms / (1e3 * wall) - 1) <= 0.03),
         "traced_outputs_equal_untraced": all(equal),
