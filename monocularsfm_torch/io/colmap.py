@@ -24,7 +24,6 @@ Format (standard COLMAP sparse text model):
 from __future__ import annotations
 
 import ctypes
-import itertools
 import pathlib
 
 import numpy as np
@@ -63,21 +62,15 @@ def _points3d_lines(map_obj) -> bytes:
     integers, ERROR the point's mean reprojection error over its track."""
     from monocularsfm_torch import native
 
-    pids = np.asarray(map_obj.point_ids(), np.int64)
-    tracks = [map_obj.track(int(p)) for p in pids]
-    lens = np.fromiter(map(len, tracks), np.int64, len(tracks))
-    pairs = np.fromiter(itertools.chain.from_iterable(
-        itertools.chain.from_iterable(tracks)), np.int64, 2 * int(lens.sum()))
-    xyz = np.array([map_obj.xyz(int(p)) for p in pids], np.float64).reshape(-1, 3)
+    pts = map_obj.points_table()
     # Stored colors are BGR (OpenCV sampling); COLMAP wants RGB.
-    bgr = np.array([map_obj.color(int(p)) for p in pids]).reshape(-1, 3)
-    rgb = np.ascontiguousarray(bgr[:, ::-1].astype(np.int64))
-    err = _mean_track_errors(map_obj, pairs.reshape(-1, 2), lens, xyz)
-    offsets = np.concatenate([[0], np.cumsum(lens)])
+    rgb = np.ascontiguousarray(pts["bgr"][:, ::-1].astype(np.int64))
+    offsets = np.concatenate([[0], np.cumsum(pts["lens"])])
     buf = ctypes.create_string_buffer(
-        _POINT3D_BYTES * len(pids) + _TRACK_PAIR_BYTES * len(pairs) // 2 + 1)
+        _POINT3D_BYTES * len(pts["ids"]) + _TRACK_PAIR_BYTES * len(pts["track"]) + 1)
     n = native.get_text_lib().colmap_points3d_lines(
-        pids, xyz, rgb, err, offsets, pairs, len(pids), buf)
+        pts["ids"], pts["xyz"], rgb, pts["error"], offsets, pts["track"],
+        len(pts["ids"]), buf)
     return buf.raw[:n]
 
 
@@ -95,30 +88,6 @@ def _numbers(text: bytes) -> tuple[np.ndarray, np.ndarray]:
         raise ValueError(f"not a number at byte {-1 - n}: "
                          f"{text[-1 - n:-1 - n + 40]!r}")
     return out[:n], counts[:lines.value]
-
-
-def _mean_track_errors(map_obj, obs: np.ndarray, lens: np.ndarray,
-                       xyz: np.ndarray) -> np.ndarray:
-    """Each point's mean reprojection error over its track, as
-    `Map.reproj_errors_of_track(pid).mean()` computes it, for all points at
-    once: `obs` holds the (image id, keypoint) pairs of the tracks, `lens`
-    their lengths and `xyz` the points."""
-    images, row = np.unique(obs[:, 0], return_inverse=True)
-    ims = [map_obj.images[int(i)] for i in images]
-    R = np.array([im.R for im in ims], np.float64).reshape(-1, 3, 3)[row]
-    t = np.array([im.t for im in ims], np.float64).reshape(-1, 3)[row]
-    start = np.cumsum([0] + [len(im.uv) for im in ims])
-    uv_all = (np.concatenate([im.uv for im in ims]) if ims
-              else np.zeros((0, 2), np.float32))
-    uv = uv_all[start[row] + obs[:, 1]].astype(np.float64)
-    owner = np.repeat(np.arange(len(lens)), lens)
-    xc = np.einsum("oij,oj->oi", R, xyz[owner]) + t
-    z = np.where(np.abs(xc[:, 2:3]) < 1e-9, 1e-9, xc[:, 2:3])
-    K = map_obj.K
-    proj = xc[:, :2] / z * [K[0, 0], K[1, 1]] + [K[0, 2], K[1, 2]]
-    err = np.linalg.norm(proj - uv, axis=1)
-    with np.errstate(invalid="ignore", divide="ignore"):
-        return np.bincount(owner, weights=err, minlength=len(lens)) / lens
 
 
 def write_colmap(map_obj, out_dir, width: int = 0, height: int = 0):
@@ -256,7 +225,7 @@ def map_from_colmap(model_dir):
         m.add_image_pose(image_id, im["R"], im["t"])
     for pid, pt in sorted(model["points"].items()):
         new_pid = m.add_point3d(pt["xyz"], pt["track"])
-        m._rgb[new_pid] = pt["rgb"][::-1]  # back to the BGR of the Map
+        m.set_color(new_pid, pt["rgb"][::-1])  # back to the BGR of the Map
     m.modified_point3D_ids.clear()
     return m
 

@@ -12,11 +12,8 @@ import numpy as np
 
 
 def _gather(map_obj):
-    pids = map_obj.point_ids()
-    xyz = np.array([map_obj.xyz(int(p)) for p in pids]) if len(pids) else np.zeros((0, 3))
-    bgr = np.array([map_obj.color(int(p)) for p in pids]) if len(pids) else np.zeros((0, 3))
-    rgb = bgr[:, ::-1].astype(np.uint8) if len(bgr) else bgr.astype(np.uint8)
-    return xyz, rgb
+    pts = map_obj.points_table()
+    return pts["xyz"], pts["bgr"][:, ::-1].astype(np.uint8)
 
 
 def _header(n, binary):

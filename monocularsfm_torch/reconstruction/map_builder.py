@@ -23,7 +23,6 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
-import itertools
 import json
 import os
 import pathlib
@@ -35,7 +34,7 @@ import torch
 from monocularsfm_torch.config import SfMConfig
 from monocularsfm_torch.optim import bundle_adjust
 from monocularsfm_torch.reconstruction.initializer import Initializer
-from monocularsfm_torch.reconstruction.map_state import Map
+from monocularsfm_torch.reconstruction.map_state import Map, pow2_bucket
 from monocularsfm_torch.reconstruction.register_graph import RegisterGraph
 from monocularsfm_torch.reconstruction.registrant import Registrant
 from monocularsfm_torch.reconstruction.scene_graph import SceneGraph
@@ -202,11 +201,10 @@ class MapBuilder:
             im = self.map.images[image_id]
             # Points this image already observes (through any keypoint).
             seen = set(im.point3D[im.point3D >= 0].tolist())
+            live = set(self.map.live_ids(pids).tolist())
             for j in np.nonzero(inl)[0]:
                 k, pid = int(kpt_idx[j]), int(pids[j])
-                if im.point3D[k] < 0 and self.map._alive[pid] and (
-                    pid not in seen
-                ):
+                if im.point3D[k] < 0 and pid in live and pid not in seen:
                     self.map.add_observation(pid, image_id, k)
                     seen.add(pid)
             self._log(
@@ -310,19 +308,8 @@ class MapBuilder:
             # for small bundles, PCG beyond dense_max_images, and beyond the
             # dense path's observation capacity.  The estimate mirrors the
             # bridge's bucketing (pow2(points) x pow2(max track length)).
-            from monocularsfm_torch.reconstruction.map_state import (
-                pow2_bucket as _pow2,
-            )
-
-            if self.map._node_p3d is not None:
-                _, opid = self.map._obs_table()
-                n_pts = len(np.unique(opid)) if len(opid) else 1
-                max_len = (int(np.bincount(opid).max())
-                           if len(opid) else 2)
-            else:
-                n_pts = max(self.map.num_points3D, 1)
-                max_len = n_imgs
-            est_cap = _pow2(n_pts, 256) * _pow2(max(max_len, 2), 8)
+            n_pts, max_len = self.map.observed_extent()
+            est_cap = pow2_bucket(n_pts, 256) * pow2_bucket(max(max_len, 2), 8)
             dense = (n_imgs <= bcfg.dense_max_images
                      and est_cap <= bcfg.dense_max_obs)
             mesh = self._ba_mesh()
@@ -402,19 +389,14 @@ class MapBuilder:
                     point_ids, mb.filter_max_error_px,
                     mb.filter_min_tri_angle_deg
                 )
-
-            def _alive(ids):
-                arr = np.asarray(list(ids), np.int64).reshape(-1)
-                return arr[self.map._alive[arr]] if len(arr) else arr
-
             with self._phase("complete_pass"):
                 self.map.complete_points(
-                    _alive(point_ids),
+                    self.map.live_ids(point_ids),
                     mb.complete_max_error_px, mb.complete_max_transitivity,
                 )
             with self._phase("merge_pass"):
                 self.map.merge_points(
-                    _alive(point_ids),
+                    self.map.live_ids(point_ids),
                     mb.merge_max_error_px,
                 )
 
@@ -534,87 +516,13 @@ class MapBuilder:
                     continue
                 self.map.add_image_pose(image_id, im["R"], im["t"])
                 self.register_graph.set_registered(image_id)
-            self._restore_points(read_colmap_points(model_dir))
+            self.map.restore_points(read_colmap_points(model_dir))
             self.map.modified_point3D_ids.clear()
             self._last_global_ba_count = len(self.map.registered_ids)
         self._log(
             f"[resume] {len(self.map.registered_ids)} images, "
             f"{self.map.num_points3D} points restored"
         )
-
-    def _restore_points(self, pts: dict):
-        """Add a snapshot's points (`io.colmap.read_colmap_points`) to the
-        map, leaving the state of one `Map.add_point3d` a point in id
-        order: each keeps the elements of its track in loaded images whose
-        keypoint is free, and is added if two remain.  Done at once unless
-        a keypoint lies in two tracks, where that order decides."""
-        m = self.map
-        if len(np.unique(pts["ids"])) < len(pts["ids"]):
-            raise ValueError("a point id appears twice in the snapshot")
-        order = np.argsort(pts["ids"], kind="stable")
-        lens = pts["lens"][order]
-        first = (np.cumsum(pts["lens"]) - pts["lens"])[order]
-        owner = np.repeat(np.arange(len(order)), lens)
-        obs = pts["track"][first[owner] + np.arange(len(owner))
-                           - (np.cumsum(lens) - lens)[owner]]
-        xyz = pts["xyz"][order]
-        if not m.images or not len(obs):
-            return
-        ids = np.array(sorted(m.images), np.int64)
-        sizes = [len(m.images[i].point3D) for i in ids.tolist()]
-        base = np.concatenate([[0], np.cumsum(sizes, dtype=np.int64)])
-        row = np.minimum(np.searchsorted(ids, obs[:, 0]), len(ids) - 1)
-        keep = ids[row] == obs[:, 0]
-        kpt = obs[keep, 1]
-        if np.any((kpt < 0) | (kpt >= np.asarray(sizes)[row[keep]])):
-            raise IndexError("a snapshot's track names a keypoint its image lacks")
-        node = base[row] + obs[:, 1]
-        taken = np.concatenate([m.images[i].point3D for i in ids.tolist()])
-        keep[keep] = taken[node[keep]] < 0
-        if len(np.unique(node[keep])) < int(keep.sum()):
-            for X, track in zip(xyz, np.split(obs, np.cumsum(lens)[:-1])):
-                track = [(i, k) for i, k in track.tolist() if i in m.images
-                         and m.images[i].point3D[k] < 0]
-                if len(track) >= 2:
-                    m.add_point3d(X, track)
-            return
-        added = np.bincount(owner[keep], minlength=len(order)) >= 2
-        keep &= added[owner]
-        n_new = int(added.sum())
-        new_id = np.full(len(order), -1, np.int64)
-        new_id[added] = m._next_id + np.arange(n_new)
-        # The point arrays grown as `Map._grow` grows them for each new id.
-        while len(m._alive) < m._next_id + n_new:
-            next_id, m._next_id = m._next_id, len(m._alive)
-            m._grow()
-            m._next_id = next_id
-        # The kept elements, in id order as the tracks were.
-        obs, node, new_pid = obs[keep], node[keep], new_id[owner[keep]]
-        new = new_id[added]
-        start = np.searchsorted(new_pid, new)
-        counts = np.diff(np.append(start, len(new_pid)))
-        colors = np.concatenate([m.images[i].colors for i in ids.tolist()])
-        color_sum = np.stack([np.bincount(new_pid - m._next_id, colors[node, c],
-                                          n_new) for c in range(3)], 1)
-        m._xyz[new] = xyz[added]
-        m._rgb[new] = color_sum / counts[:, None]
-        m._alive[new] = True
-        pairs = list(zip(obs[:, 0].tolist(), obs[:, 1].tolist()))
-        for pid, s, c in zip(new.tolist(), start.tolist(), counts.tolist()):
-            m._tracks[pid] = pairs[s:s + c]
-        m._num_points += n_new
-        m._next_id += n_new
-        # Each image's keypoints, and the scene graph's mirror of them.
-        by_node = np.argsort(node)
-        cut = np.searchsorted(node[by_node], base)
-        g = m.scene_graph
-        for k, image_id in enumerate(ids.tolist()):
-            sel = by_node[cut[k]:cut[k + 1]]
-            kpt, pid = obs[sel, 1], new_pid[sel]
-            m.images[image_id].point3D[kpt] = pid
-            if m._node_p3d is not None and image_id in g._node_offset:
-                inside = kpt < g.num_keypoints[image_id]
-                m._node_p3d[g._node_offset[image_id] + kpt[inside]] = pid[inside]
 
     def summary(self) -> BuildSummary:
         st = self.map.statistics()

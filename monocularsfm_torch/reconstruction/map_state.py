@@ -18,17 +18,20 @@ business logic:
                                               (:965-1206)
   Statistics                                  (:1210-1319)
 
-TPU-native design: per-image state is struct-of-arrays (undistorted
-keypoints, colors, point3D back-pointers as one int32 array per image);
-points live in growable parallel numpy arrays with a free list; *all* error
-math (reprojection, parallax) is recomputed in vectorised batches instead of
-the reference's incrementally-maintained running averages (whose consistency
-the reference itself has to double-check in Map::Debug, :1874-1902).
+Design: per-image state is struct-of-arrays (undistorted keypoints,
+colors, point3D back-pointers as one int64 array per image); points live in
+growable parallel numpy arrays with a free list; *all* error math
+(reprojection, parallax) is recomputed in vectorised batches instead of the
+reference's incrementally-maintained running averages (whose consistency
+the reference itself has to double-check in Map::Debug, :1874-1902).  No
+other module touches the point arrays: a snapshot comes in through
+`restore_points` and the exports read `points_table`, both in bulk.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import itertools
 
 import numpy as np
 
@@ -191,24 +194,22 @@ class Map:
         # "modified" ~= touched since this image was registered.
         self.modified_point3D_ids.clear()
 
-    def _grow(self):
+    def _reserve(self, n: int):
+        """Room for point ids below `n`: the capacity doubled until they fit."""
         cap = len(self._alive)
-        if self._next_id < cap:
+        new_cap = pow2_bucket(n, cap)
+        if new_cap == cap:
             return
-        new_cap = cap * 2
-        for name in ("_xyz", "_rgb"):
+        for name in ("_xyz", "_rgb", "_alive"):
             arr = getattr(self, name)
             grown = np.zeros((new_cap,) + arr.shape[1:], arr.dtype)
             grown[:cap] = arr
             setattr(self, name, grown)
-        alive = np.zeros(new_cap, bool)
-        alive[:cap] = self._alive
-        self._alive = alive
         self._tracks.extend([None] * (new_cap - cap))
 
     def add_point3d(self, xyz: np.ndarray, track: list[tuple[int, int]]) -> int:
         """New 3D point observed by track = [(image_id, kpt_idx), ...]."""
-        self._grow()
+        self._reserve(self._next_id + 1)
         pid = self._next_id
         self._next_id += 1
         self._xyz[pid] = xyz
@@ -229,6 +230,76 @@ class Map:
         im.point3D[kpt] = pid
         self._tracks[pid].append((image_id, kpt))
         self._mirror_p3d(image_id, kpt, pid)
+
+    def restore_points(self, pts: dict):
+        """Add a snapshot's points (`io.colmap.read_colmap_points`), leaving
+        the state of one `add_point3d` a point in id order: each keeps the
+        elements of its track in loaded images whose keypoint is free, and
+        is added if two remain.  Done at once unless a keypoint lies in two
+        tracks, where that order decides."""
+        if len(np.unique(pts["ids"])) < len(pts["ids"]):
+            raise ValueError("a point id appears twice in the snapshot")
+        order = np.argsort(pts["ids"], kind="stable")
+        lens = pts["lens"][order]
+        first = (np.cumsum(pts["lens"]) - pts["lens"])[order]
+        owner = np.repeat(np.arange(len(order)), lens)
+        obs = pts["track"][first[owner] + np.arange(len(owner))
+                           - (np.cumsum(lens) - lens)[owner]]
+        xyz = pts["xyz"][order]
+        if not self.images or not len(obs):
+            return
+        ids = np.array(sorted(self.images), np.int64)
+        sizes = [len(self.images[i].point3D) for i in ids.tolist()]
+        base = np.concatenate([[0], np.cumsum(sizes, dtype=np.int64)])
+        row = np.minimum(np.searchsorted(ids, obs[:, 0]), len(ids) - 1)
+        keep = ids[row] == obs[:, 0]
+        kpt = obs[keep, 1]
+        if np.any((kpt < 0) | (kpt >= np.asarray(sizes)[row[keep]])):
+            raise IndexError("a snapshot's track names a keypoint its image lacks")
+        node = base[row] + obs[:, 1]
+        taken = np.concatenate([self.images[i].point3D for i in ids.tolist()])
+        keep[keep] = taken[node[keep]] < 0
+        if len(np.unique(node[keep])) < int(keep.sum()):
+            for X, track in zip(xyz, np.split(obs, np.cumsum(lens)[:-1])):
+                track = [(i, k) for i, k in track.tolist() if i in self.images
+                         and self.images[i].point3D[k] < 0]
+                if len(track) >= 2:
+                    self.add_point3d(X, track)
+            return
+        added = np.bincount(owner[keep], minlength=len(order)) >= 2
+        keep &= added[owner]
+        n_new = int(added.sum())
+        new_id = np.full(len(order), -1, np.int64)
+        new_id[added] = self._next_id + np.arange(n_new)
+        self._reserve(self._next_id + n_new)
+        # The kept elements, in id order as the tracks were.
+        obs, node, new_pid = obs[keep], node[keep], new_id[owner[keep]]
+        new = new_id[added]
+        start = np.searchsorted(new_pid, new)
+        counts = np.diff(np.append(start, len(new_pid)))
+        colors = np.concatenate([self.images[i].colors for i in ids.tolist()])
+        color_sum = np.stack([np.bincount(new_pid - self._next_id,
+                                          colors[node, c], n_new)
+                              for c in range(3)], 1)
+        self._xyz[new] = xyz[added]
+        self._rgb[new] = color_sum / counts[:, None]
+        self._alive[new] = True
+        pairs = list(zip(obs[:, 0].tolist(), obs[:, 1].tolist()))
+        for pid, s, c in zip(new.tolist(), start.tolist(), counts.tolist()):
+            self._tracks[pid] = pairs[s:s + c]
+        self._num_points += n_new
+        self._next_id += n_new
+        # Each image's keypoints, and the scene graph's mirror of them.
+        by_node = np.argsort(node)
+        cut = np.searchsorted(node[by_node], base)
+        g = self.scene_graph
+        for k, image_id in enumerate(ids.tolist()):
+            sel = by_node[cut[k]:cut[k + 1]]
+            kpt, pid = obs[sel, 1], new_pid[sel]
+            self.images[image_id].point3D[kpt] = pid
+            if self._node_p3d is not None and image_id in g._node_offset:
+                inside = kpt < g.num_keypoints[image_id]
+                self._node_p3d[g._node_offset[image_id] + kpt[inside]] = pid[inside]
 
     def add_observation(self, pid: int, image_id: int, kpt: int):
         self._add_track_element(pid, image_id, kpt)
@@ -259,6 +330,11 @@ class Map:
     def point_ids(self) -> np.ndarray:
         return np.nonzero(self._alive[: self._next_id])[0]
 
+    def live_ids(self, ids) -> np.ndarray:
+        """Those of the point ids `ids` that are alive, in their order."""
+        arr = np.asarray(ids, np.int64).reshape(-1)
+        return arr[self._alive[arr]] if len(arr) else arr
+
     def xyz(self, pid: int) -> np.ndarray:
         return self._xyz[pid]
 
@@ -267,6 +343,53 @@ class Map:
 
     def color(self, pid: int) -> np.ndarray:
         return self._rgb[pid]
+
+    def set_color(self, pid: int, bgr):
+        self._rgb[pid] = bgr
+
+    def points_table(self) -> dict:
+        """The live points in id order, in the form of a snapshot's from
+        `io.colmap.read_colmap_points`: ids (P,), xyz (P, 3), lens (P,) and
+        track (sum of lens, 2), the (image id, keypoint) pairs of each
+        track in stored order; with bgr (P, 3) the stored colour and error
+        (P,) each point's mean reprojection error over its track, as
+        `reproj_errors_of_track(pid).mean()` gives it, for all at once."""
+        ids = self.point_ids()
+        tracks = [self._tracks[p] for p in ids.tolist()]
+        lens = np.fromiter(map(len, tracks), np.int64, len(tracks))
+        obs = np.fromiter(itertools.chain.from_iterable(
+            itertools.chain.from_iterable(tracks)), np.int64,
+            2 * int(lens.sum())).reshape(-1, 2)
+        xyz = self._xyz[ids]
+        images, row = np.unique(obs[:, 0], return_inverse=True)
+        ims = [self.images[int(i)] for i in images]
+        R = np.array([im.R for im in ims], np.float64).reshape(-1, 3, 3)[row]
+        t = np.array([im.t for im in ims], np.float64).reshape(-1, 3)[row]
+        start = np.cumsum([0] + [len(im.uv) for im in ims])
+        uv_all = (np.concatenate([im.uv for im in ims]) if ims
+                  else np.zeros((0, 2), np.float32))
+        uv = uv_all[start[row] + obs[:, 1]].astype(np.float64)
+        owner = np.repeat(np.arange(len(lens)), lens)
+        xc = np.einsum("oij,oj->oi", R, xyz[owner]) + t
+        z = np.where(np.abs(xc[:, 2:3]) < 1e-9, 1e-9, xc[:, 2:3])
+        K = self.K
+        proj = xc[:, :2] / z * [K[0, 0], K[1, 1]] + [K[0, 2], K[1, 2]]
+        err = np.linalg.norm(proj - uv, axis=1)
+        with np.errstate(invalid="ignore", divide="ignore"):
+            err = np.bincount(owner, weights=err, minlength=len(lens)) / lens
+        return {"ids": ids, "xyz": xyz, "bgr": self._rgb[ids], "lens": lens,
+                "track": obs, "error": err}
+
+    def observed_extent(self) -> tuple[int, int]:
+        """(points observed, longest track) for the dense/PCG gate, which
+        mirrors the BA bridge's bucketing; without a scene graph, every
+        point and the registered-image count."""
+        if self._node_p3d is None:
+            return max(self._num_points, 1), len(self.registered_ids)
+        _, opid = self._obs_table()
+        if not len(opid):
+            return 1, 2
+        return len(np.unique(opid)), int(np.bincount(opid).max())
 
     # -- geometry helpers (vectorised, numpy) --------------------------------
     def _project(self, image_id: int, X: np.ndarray) -> np.ndarray:
@@ -828,8 +951,7 @@ class Map:
                 removed += 1
         t2 = _t.perf_counter()
         # Parallax pass (small-angle filter, Map.cpp:875-917).
-        pid_arr = np.asarray(point_ids, np.int64).reshape(-1)
-        alive = pid_arr[self._alive[pid_arr]] if len(pid_arr) else pid_arr
+        alive = self.live_ids(point_ids)
         if not len(alive):
             return removed
         if self._node_p3d is not None:
@@ -837,11 +959,11 @@ class Map:
                 alive, min_tri_angle_deg
             )
         else:
-            alive_arr = np.asarray(alive, np.int64)
+            alive_arr = alive
             has_angle = np.array([
                 self.track_parallax_ok(int(p), min_tri_angle_deg)
                 for p in alive_arr
-            ], bool) if len(alive_arr) else np.zeros(0, bool)
+            ], bool)
         for pid in alive_arr[~has_angle]:
             pid = int(pid)
             if self._alive[pid]:

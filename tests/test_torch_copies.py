@@ -12,9 +12,8 @@ import pytest
 REPO = pathlib.Path(__file__).resolve().parent.parent
 COPIED = ["types.py", "config.py", "database.py", "utils/timer.py",
           "utils/caps.py", "reconstruction/scene_graph.py",
-          "reconstruction/register_graph.py", "reconstruction/map_state.py",
-          "io/ply.py", "native/scene_graph_core.cpp", "viz.py",
-          "utils/debug_draw.py"]
+          "reconstruction/register_graph.py", "native/scene_graph_core.cpp",
+          "viz.py", "utils/debug_draw.py"]
 
 
 @pytest.mark.parametrize("rel", COPIED)
