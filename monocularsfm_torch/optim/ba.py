@@ -36,6 +36,8 @@ Same algorithm as the reference, written as plain tensor code:
   the LM exit flag once per LM iteration, and the CG exit test once per CG
   step, or on the card without a group once per replayed block of CG
   steps (one device sync each), so iteration counts follow the same rules.
+  On the card without a group the dense path's iteration after the first
+  is a replayed CUDA graph (optim/lm_graph.py), the eager loop's kernels.
   As in the reference, the loop may run in segments (`dispatch_iters`),
   each resuming from the state (K, R, t, X, radius, cost, iterations,
   converged) the last one ended in (`init_state`).
@@ -61,6 +63,7 @@ import torch
 
 from monocularsfm_torch.geometry.rotations import angle_axis_to_matrix, skew
 from monocularsfm_torch.ops.schur import _mv, cams_of, points_of, schur_plan
+from monocularsfm_torch.optim.lm_graph import LMGraph
 from monocularsfm_torch.optim.pcg import CGGraph, cg_eager
 from monocularsfm_torch.utils.segment import segment_plan, segment_sum
 from monocularsfm_torch.utils.spans import span
@@ -183,6 +186,13 @@ def _check_device(prob: BundleProblem, device) -> torch.device:
                 f"bundle_adjust on {dev}: BundleProblem.{name} lies on "
                 f"{v.device}; move the problem with prob.to({str(dev)!r})")
     return dev
+
+
+def _lm_graph_on(dev: torch.device, group, solve_mode: str) -> bool:
+    """Whether the LM loop runs as a CUDA graph (optim/lm_graph.py): on the
+    dense path on the card without a process group, whose sums are
+    collectives.  The PCG path's CG loop has its own graph."""
+    return dev.type == "cuda" and group is None and solve_mode == "dense"
 
 
 def _next_pow2(x: int, minimum: int = 1) -> int:
@@ -606,6 +616,37 @@ def _lm_segment(
         return cost, new_cost, pred, K, R_new, t_new, X_new, step_sq, g_inf, k
 
     try_step = try_step_dense if solve_mode == "dense" else try_step_pcg
+
+    def lm_iteration(state, phases, in_place=False):
+        """One LM iteration from state = (K, R, t, X, radius, cost): the
+        trial step, the accept test, the radius update and the stop tests.
+        Returns (the next state, the stop flag, the CG steps); `in_place`
+        writes each next value into its buffer of `state` (the LM graph's
+        static buffers)."""
+        K, R, t, X, radius, _ = state
+        (cost_cur, new_cost, pred, K_new, R_new, t_new, X_new, step_sq,
+         g_inf, k) = try_step(K, R, t, X, 1.0 / radius, phases)
+        o = state if in_place else (None,) * 6
+        rho = (cost_cur - new_cost) / torch.clamp(pred, min=1e-20)
+        accept = (rho > 0) & (new_cost < cost_cur) & torch.isfinite(new_cost)
+        # Ceres-style radius update.
+        shrink = 1.0 - (2.0 * rho - 1.0) ** 3
+        radius_new = torch.where(
+            accept, radius / torch.clamp(shrink, min=1.0 / 3.0), radius / 2.0)
+        radius = torch.clamp(radius_new, 1e-16, 1e16, out=o[4])
+        nxt = (torch.where(accept, K_new, K, out=o[0]),
+               torch.where(accept, R_new, R, out=o[1]),
+               torch.where(accept, t_new, t, out=o[2]),
+               torch.where(accept, X_new, X, out=o[3]),
+               radius,
+               torch.where(accept, new_cost, cost_cur, out=o[5]))
+        f_conv = accept & ((cost_cur - new_cost).abs()
+                           <= function_tolerance * cost_cur)
+        x_conv = accept & (torch.sqrt(step_sq) <= parameter_tolerance)
+        g_conv = g_inf <= gradient_tolerance
+        stuck = ~accept & (radius <= 1e-14)
+        return nxt, f_conv | x_conv | g_conv | stuck, k
+
     num_res, cost0 = psum(num_res, cost_of(prob.K, prob.R, prob.t, prob.X))
     if init_state is None:
         K, R, t, X = prob.K, prob.R, prob.t, prob.X
@@ -617,33 +658,20 @@ def _lm_segment(
     radius = torch.as_tensor(radius, dtype=f32, device=dev)
     cost = torch.as_tensor(cost, dtype=f32, device=dev)
     it, done, cg_steps, cg_reads = int(it), bool(done), 0, 0
+    state = (K, R, t, X, radius, cost)
     prepare.close()
+    if it < max_iterations and not done and _lm_graph_on(dev, group, solve_mode):
+        graph = LMGraph(lambda s: lm_iteration(s, None, in_place=True)[1], state)
+        it, done = graph(it, max_iterations)
+        state = graph.state
     while it < max_iterations and not done:
         with contextlib.ExitStack() as phases:
-            (cost_cur, new_cost, pred, K_new, R_new, t_new, X_new, step_sq,
-             g_inf, k) = try_step(K, R, t, X, 1.0 / radius, phases)
+            state, stop, k = lm_iteration(state, phases)
             cg_steps += k
-            rho = (cost_cur - new_cost) / torch.clamp(pred, min=1e-20)
-            accept = (rho > 0) & (new_cost < cost_cur) & torch.isfinite(new_cost)
-            # Ceres-style radius update.
-            shrink = 1.0 - (2.0 * rho - 1.0) ** 3
-            radius_new = torch.where(
-                accept, radius / torch.clamp(shrink, min=1.0 / 3.0), radius / 2.0)
-            radius = torch.clamp(radius_new, 1e-16, 1e16)
-            K = torch.where(accept, K_new, K)
-            R = torch.where(accept, R_new, R)
-            t = torch.where(accept, t_new, t)
-            X = torch.where(accept, X_new, X)
-            cost = torch.where(accept, new_cost, cost_cur)
-            f_conv = accept & ((cost_cur - new_cost).abs()
-                               <= function_tolerance * cost_cur)
-            x_conv = accept & (torch.sqrt(step_sq) <= parameter_tolerance)
-            g_conv = g_inf <= gradient_tolerance
-            stuck = ~accept & (radius <= 1e-14)
-            stop = f_conv | x_conv | g_conv | stuck
             with span("host_read.lm_exit"):
                 done = bool(stop)
         it += 1
+    K, R, t, X, radius, cost = state
     denom = torch.clamp(num_res, min=1.0)
     reproj = psum(torch.linalg.norm(project(K, R, t, X)[0], dim=-1).sum())[0]
     return {

@@ -849,3 +849,102 @@ def test_pcg_bundle_adjust_through_the_graph_equals_the_eager_loop(dev, monkeypa
     steps, it = graph["cg_steps"], graph["iterations"]
     assert steps > 0 and eager["cg_reads"] >= steps
     assert graph["cg_reads"] <= -(-steps // pcg.block_steps(30)) + it
+
+
+# -- the dense path's LM iteration as a CUDA graph (optim/lm_graph.py) -----
+
+def _counting_lm_graphs(monkeypatch):
+    """ba.LMGraph made to count its captures and replays: the list of the
+    graphs that a solve builds."""
+    from monocularsfm_torch.optim import ba, lm_graph
+
+    made = []
+
+    class Counting(lm_graph.LMGraph):
+        def __init__(self, body, state):
+            super().__init__(body, state)
+            self.captures = self.replays = 0
+            made.append(self)
+
+        def _capture(self):
+            self.captures += 1
+            replay, stop = super()._capture()
+
+            def counted():
+                self.replays += 1
+                replay()
+
+            return counted, stop
+
+    monkeypatch.setattr(ba, "LMGraph", Counting)
+    return made
+
+
+@pytest.mark.parametrize("case", ["small_bundle", "ring16", "refine_focal",
+                                  "first_stops", "segments"])
+def test_dense_bundle_adjust_through_the_lm_graph_equals_the_eager_loop(
+        dev, monkeypatch, case):
+    """A dense solve on the card through the LM graph against the eager
+    loop (forced): R, t, X, K, costs, radius, iterations bit for bit, one
+    graph a segment, a capture where a segment goes past its first
+    iteration, one replay each iteration after it."""
+    from test_torch_dense_lm_graph import assert_same_solve, case_problem
+
+    from monocularsfm_torch.optim import ba, bundle_adjust
+
+    prob, kw = case_problem(case)
+    prob = prob.to(dev)
+    made = _counting_lm_graphs(monkeypatch)
+    graph = bundle_adjust(prob, **kw)
+    with monkeypatch.context() as m:
+        m.setattr(ba, "_lm_graph_on", lambda dev, group, mode: False)
+        eager = bundle_adjust(prob, **kw)
+    assert graph["R"].device.type == "cuda" and len(made) > 0
+    assert_same_solve(graph, eager)
+    it = graph["iterations"]
+    segments = -(-it // kw.get("dispatch_iters", it))
+    assert len(made) == segments
+    assert sum(g.replays for g in made) == it - segments
+    assert [g.captures for g in made] == [int(g.replays > 0) for g in made]
+    if case == "small_bundle":
+        assert it > 50
+    if case == "first_stops":
+        assert it == 1 and made[0].captures == 0
+
+
+def test_lm_graph_reads_once_an_iteration_and_frees_its_memory(dev):
+    """Through the LM graph: no CG read, one `host_read.lm_exit` an LM
+    iteration (one a replay), one capture; once the result is dropped the
+    card holds what it held before the solve, and the allocator has
+    reserved nothing more (the graphs take turns in one pool)."""
+    import gc
+
+    from test_torch_dense_lm_graph import case_problem
+    from torch.profiler import ProfilerActivity, profile
+
+    from monocularsfm_torch.optim import bundle_adjust
+
+    prob, kw = case_problem("small_bundle")
+    prob = prob.to(dev)
+    for _ in range(2):          # cuBLAS's workspace on the graph's stream
+        bundle_adjust(prob, **kw)
+    gc.collect()
+    torch.cuda.synchronize()
+    level = torch.cuda.memory_allocated(dev)
+    reserved = torch.cuda.memory_reserved(dev)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        out = bundle_adjust(prob, **kw)
+    names = [e.name() for e in prof.profiler.kineto_results.events()
+             if e.is_user_annotation()]
+    it = out["iterations"]
+    assert it > 50
+    assert out["cg_reads"] == out["cg_steps"] == 0
+    assert names.count("host_read.lm_exit") == it
+    assert names.count("host_read.cg_test") == 0
+    assert names.count("ba.lm_capture") == 1
+    assert names.count("ba.lm_replay") == it - 1
+    del out
+    gc.collect()
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated(dev) == level
+    assert torch.cuda.memory_reserved(dev) == reserved

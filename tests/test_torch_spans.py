@@ -126,6 +126,25 @@ def test_dense_path_has_no_cg_spans():
     assert _count(sp, "host_read.lm_exit") == out["iterations"] == 3
 
 
+def test_dense_path_on_the_cpu_has_no_lm_graph_spans():
+    """The LM graph (optim/lm_graph.py) is the card's: a dense solve of
+    many iterations on the CPU captures and replays nothing."""
+    prob = ring_problem(4, 600, 4)[0]
+    solve = lambda: bundle_adjust(prob, max_iterations=40,  # noqa: E731
+                                  function_tolerance=1e-8)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)    # many tiny ops: a shared pool slows them
+    try:
+        plain = solve()
+        out, sp = _traced(solve)
+    finally:
+        torch.set_num_threads(threads)
+    _assert_same_bits(plain, out)
+    assert out["iterations"] > 2
+    assert _count(sp, "ba.lm_capture") == _count(sp, "ba.lm_replay") == 0
+    assert _count(sp, "host_read.lm_exit") == out["iterations"]
+
+
 @pytest.mark.parametrize("longest, reads", [(20, 1), (100, 2)])
 def test_fixed_order_plan_reads(longest, reads):
     """The plan reads its ids' facts once, and the bags' count once more
